@@ -2,12 +2,12 @@
 # build + full-tier test run; release mode un-gates the corpus grid).
 #
 # The unit tiers force the CPU backend with an 8-device virtual mesh
-# (tests/conftest.py); bench targets use the real TPU chip.
+# (tests/conftest.py); the gpu and bench targets need an NVIDIA GPU.
 
 PY ?= python
 PYTEST = JAX_PLATFORMS=cpu PYTHONPATH=. $(PY) -m pytest
 
-.PHONY: test test-release bench-smoke bench bench-preflight scaling multihost fuzz ci
+.PHONY: test test-release test-gpu smoke bench scaling fuzz ci
 
 # Fast tier: every unit/differential/integration test that runs in debug
 # builds of the reference (artificial corpus included, grid gated).
@@ -19,26 +19,25 @@ test:
 test-release:
 	$(PYTEST) tests/ -q --runslow -s
 
-# One-file sanity bench on the current backend (CPU works; slow).
-bench-smoke:
-	PYTHONPATH=.:$$PYTHONPATH $(PY) bench.py --smoke
+# Compiled kernels vs their references on the card (skips without a GPU).
+test-gpu:
+	REDUX_TEST_PLATFORM=cuda PYTHONPATH=. $(PY) -m pytest tests/ -q -m gpu
 
-# Compiled-mode kernel preflight: the Mosaic kernels must round-trip
-# bit-exactly on the real chip before any number is trusted (auto-skips
-# on machines without an accelerator).
-bench-preflight:
-	$(PYTEST) tests/test_tpu_hardware.py -q
+# The main path on one GPU, end to end (one JSON line last).
+smoke:
+	$(PY) chip_smoke.py
 
-# Full benchmark (driver contract: one JSON line; real TPU).
-bench: bench-preflight
-	PYTHONPATH=.:$$PYTHONPATH $(PY) bench.py
+# Benchmark (one JSON line; fails without a GPU).
+bench: test-gpu
+	$(PY) bench.py
 
 scaling:
-	JAX_PLATFORMS=cpu PYTHONPATH=.:$$PYTHONPATH $(PY) scripts/scaling_bench.py
+	JAX_PLATFORMS=cpu PYTHONPATH=. $(PY) scripts/scaling_bench.py
 
-# Bounded randomized differential bug hunt (default 20 minutes):
-# Pallas kernel variants + generic device-path coders vs the oracle.
+# Bounded randomized differential bug hunt (default 20 minutes): the
+# GPU coder kernels (interpret mode) + generic device-path coders vs the
+# oracle.
 fuzz:
-	PYTHONPATH= $(PY) scripts/fuzz_campaign.py $(or $(MINUTES),20)
+	$(PY) scripts/fuzz_campaign.py $(or $(MINUTES),20)
 
-ci: test bench-smoke
+ci: test

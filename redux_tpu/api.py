@@ -2,16 +2,17 @@
 
 ``encode(data) -> archive`` / ``decode(archive) -> data``: the redux_tpu
 equivalents of the reference's ``compress``/``decompress`` (lib.rs:102-120),
-but running the TPU-native block-parallel data path:
+but running the block-parallel device data path:
 
 1. split input into fixed-size blocks (the codec analog of context
    parallelism — SURVEY.md §5);
 2. derive the warm-start prior from the global byte histogram;
 3. compute every block's per-symbol model values on-device
-   (:mod:`redux_tpu.ops.pallas_model` on TPU, the closed-form
-   :mod:`redux_tpu.ops.ranks` on CPU);
-4. run the vectorized interval coder over all blocks at once
-   (:mod:`redux_tpu.ops.coder`, Pallas kernels on TPU);
+   (the closed-form :mod:`redux_tpu.ops.ranks`);
+4. run the interval coder over all blocks at once — the coder
+   :func:`redux_tpu.ops.backend.select` picks for the backend (Pallas
+   kernels on the GPU, XLA scans on the CPU), sharded over every visible
+   device;
 5. splice per-block streams into an RXT v2 archive
    (:mod:`redux_tpu.container`).
 
@@ -23,6 +24,7 @@ Reference-format single streams (no container) are handled by
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import jax
@@ -37,30 +39,30 @@ from .container import (
 )
 from .errors import InvalidInputError, ReduxError
 from .models.dense import prior_init_cum, quantize_prior, uniform_init_cum
-from .ops.coder import (
-    bytes_to_words_device,
-    decode_blocks,
-    encode_blocks_v2,
-    max_block_words,
-    words_to_bytes_device,
-)
-from .ops.ranks import precompute_encode_model
+from .ops import backend
+from .ops.coder import bytes_to_words_device, max_block_words, words_to_bytes_device
+from .ops.triton_coder import TB
 from .params import Parameters
 
+# Auto block sizing snaps the block count to this many lanes: whole kernel
+# tiles on each of up to four cards.  It depends on neither the backend nor
+# the device count, so an input gives the same archive everywhere.
+_BLOCK_QUANTUM = 4 * TB
 
-def _pad_lanes(n: int) -> int:
-    """Round the lane count up to limit jit recompilation across inputs.
 
-    Multiples of 128 (one Pallas lane tile) keep the minor dimension
-    aligned to the VPU's 128-wide registers with at most one wasted tile
-    — the kernels' cost is linear in tiles, so a 256-multiple policy
-    cost up to 33% extra wall time (e.g. 297 blocks -> 512 lanes).  Tiny
-    inputs snap to powers of two so the smallest shapes stay
-    cache-friendly across calls.
+def _pad_lanes(n: int, q: int = 1) -> int:
+    """Round a lane (or word) count up to bound jit recompiles, then to a
+    multiple of ``q`` (the coder's lane quantum times the device count).
+
+    Counts up to 128 snap to powers of two, larger ones to multiples of
+    128: a few distinct shapes cover every input, with at most one
+    128-lane group of padding.
     """
     if n <= 128:
-        return 1 << max(2, math.ceil(math.log2(max(n, 1))))
-    return ((n + 127) // 128) * 128
+        m = 1 << max(2, math.ceil(math.log2(max(n, 1))))
+    else:
+        m = -(-n // 128) * 128
+    return -(-m // q) * q
 
 
 def _static_words(params: Parameters, k: int, delta: int = DEFAULT_DELTA) -> int:
@@ -70,12 +72,12 @@ def _static_words(params: Parameters, k: int, delta: int = DEFAULT_DELTA) -> int
     return max_block_words(max_count, params.symbol_count, params, k)
 
 
-def _split_blocks(data: bytes, block_size: int):
+def _split_blocks(data: bytes, block_size: int, q: int = 1):
     n_blocks = (len(data) + block_size - 1) // block_size
     lens = np.full(n_blocks, block_size, dtype=np.int32)
     if len(data) % block_size:
         lens[-1] = len(data) % block_size
-    b_pad = _pad_lanes(n_blocks)
+    b_pad = _pad_lanes(n_blocks, q)
     k = block_size
     # uint8 on purpose: the host->device path is fastest for bytes; the
     # rank kernel widens on-device.
@@ -98,15 +100,11 @@ def _init_cum(params: Parameters, prior_extra: Optional[np.ndarray]) -> np.ndarr
 def _dp_mesh():
     """A 1-D dp mesh over all visible devices, or None when single-device.
 
-    The production kernels are per-lane programs; on a multi-chip slice
-    the api shards lanes over this mesh (shard_map, zero hot-path
-    collectives — redux_tpu.parallel.mesh).
+    The coders are per-lane programs; with several devices the api shards
+    lanes over this mesh (shard_map, zero hot-path collectives —
+    redux_tpu.parallel.mesh).
     """
-    try:
-        devs = jax.devices()
-    except (RuntimeError, OSError):  # pragma: no cover - backend init failure
-        return None
-    if len(devs) <= 1:
+    if len(jax.devices()) <= 1:
         return None
     from .parallel.mesh import data_parallel_mesh
 
@@ -114,21 +112,15 @@ def _dp_mesh():
 
 
 def _auto_block_size(n: int) -> int:
-    """Block size snapping the block COUNT to full kernel lane tiles.
+    """Block size snapping the block COUNT to whole lane tiles.
 
-    Every kernel tile runs all ceil(k/EPOCH) epochs regardless of how
-    many of its lanes are real, so padded lanes waste whole epochs.  For
-    large inputs, pick k near the ratio-chosen default such that the
-    block count lands just under a multiple of the decode tile quantum
-    (LANES x PHASES — the decoder pads tile PAIRS when phase-interleaved)
-    (e.g. the 9.7 MB bench corpus at the 2048-lane quantum: 2370 blocks
-    of 4 KiB pad to 4096 lanes; k=2560 yields 3823 blocks in the same 2
-    program-pairs with the padding down to ~7%).  k stays 256-aligned to
-    bound recompiles.
+    Every kernel program runs all k steps whether or not its lanes are
+    real, so padded lanes are wasted work.  For large inputs, pick k near
+    the ratio-chosen default such that the block count lands just under a
+    multiple of ``_BLOCK_QUANTUM``.  k stays 256-aligned (bounding
+    recompiles) and >= 1024.
     """
-    from .ops.pallas_decode import LANES, PHASES
-
-    q = LANES * PHASES
+    q = _BLOCK_QUANTUM
     blocks0 = -(-n // DEFAULT_BLOCK_SIZE)
     lanes = -(-blocks0 // q) * q
     k = -(-(-(-n // lanes)) // 256) * 256
@@ -168,58 +160,32 @@ def _gather_slices(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
 
 
 def _dec_chunk_bytes() -> int:
-    """Decoded bytes per decode kernel dispatch (large-input chunking).
+    """Decoded bytes per decode dispatch (large-input lane chunking).
 
-    The decode staging matrix plus the symbol output plane cost a few
-    device bytes per decoded byte; lane chunks bound both for multi-GB
-    archives, mirroring ``REDUX_TPU_ENC_CHUNK_MB`` on the encode side.
+    The staging words and the symbol plane cost ~2 device bytes per
+    decoded byte; 128 MiB chunks keep that near 0.3 GB while giving the
+    decode kernel 32,768 one-warp programs to fill the card.
+    ``REDUX_DEC_CHUNK_MB`` overrides it.
     """
-    import os
-
-    return int(os.environ.get("REDUX_TPU_DEC_CHUNK_MB", "256")) << 20
+    return int(os.environ.get("REDUX_DEC_CHUNK_MB", "128")) << 20
 
 
 def _enc_chunk_bytes() -> int:
-    """Input bytes per encode kernel dispatch (large-input lane chunking).
+    """Input bytes per encode dispatch (large-input lane chunking).
 
-    The ranked encoder materializes ~8 bytes of HBM per input byte for
-    its lo/hi rank planes, so unbounded single dispatches would exhaust
-    a 16 GB chip near ~1 GB of input.  Chunking lanes bounds the planes
-    to ~2 GB per dispatch; chunks are dispatched sequentially with a
-    sync between (queuing several pins all their planes at once —
-    measured pathological on-chip)."""
-    import os
-
-    return int(os.environ.get("REDUX_TPU_ENC_CHUNK_MB", "256")) << 20
-
-
-def _use_pallas(params: Parameters) -> bool:
-    """Mosaic kernels run on real TPU backends; XLA paths everywhere else.
-
-    The Pallas kernels are semantically identical (differential-tested in
-    interpreter mode), but on CPU the interpreter is far slower than the
-    XLA scan path, so CPU keeps the scans.  ``REDUX_TPU_NO_PALLAS=1``
-    forces the XLA path on TPU too (debug / A-B benchmarking).
-    """
-    import os
-
-    if os.environ.get("REDUX_TPU_FORCE_PALLAS"):  # tests: interpret mode
-        return params.fits_u32 or params.fits_wide32
-    if os.environ.get("REDUX_TPU_NO_PALLAS"):
-        return False
-    if not (params.fits_u32 or params.fits_wide32):
-        return False
-    try:
-        return jax.default_backend() != "cpu"
-    except (RuntimeError, OSError):  # pragma: no cover - backend/plugin init failure
-        return False
+    The rank stage's temporaries are ~50 device bytes per input byte
+    (6.4 GB at a 128 MiB chunk on an H100, PERF.md), a bounded share of
+    the card's 80 GB.  Chunks run one after another with a sync between
+    (queued chunks would pin all their planes at once).
+    ``REDUX_ENC_CHUNK_MB`` overrides it."""
+    return int(os.environ.get("REDUX_ENC_CHUNK_MB", "128")) << 20
 
 
 def _check_config(params: Parameters, block_size: int, delta: int, init_total: int):
     """Reject configs whose adaptation would freeze from the start."""
     if init_total >= params.freq_max:
         raise InvalidInputError()
-    if not (params.fits_u32 or params.fits_wide32 or params.code_bits + params.freq_bits <= 62):
+    if params.code_bits + params.freq_bits > 62:
         raise InvalidInputError()
 
 
@@ -281,12 +247,14 @@ def encode(
     if len(data) == 0:
         return container.build_archive(params, block_size, 0, [], prior_extra, delta, crc)
 
-    syms, lens, n_blocks = _split_blocks(data, block_size)
+    coder = backend.select(params)
+    mesh = _dp_mesh()
+    q = coder.lane_quantum * (1 if mesh is None else mesh.devices.size)
+    syms, lens, n_blocks = _split_blocks(data, block_size, q)
     k = syms.shape[1]
     # Per-lane output capacity: any block whose coded stream reaches its
     # raw size is stored uncompressed (container RAW_BIT), so the buffer
-    # never needs the adversarial code_bits-per-symbol bound — this also
-    # keeps the Pallas encode kernel's VMEM output block ~ block_size.
+    # never needs the adversarial code_bits-per-symbol bound.
     n_words = min(_static_words(params, k, delta), k // 4 + 16)
     _mark("split")
     blk_lens = np.minimum(
@@ -294,32 +262,17 @@ def encode(
     )
 
     def _encode_lanes(syms_i, lens_i, m):
-        """One kernel dispatch over a lane slab; returns host-side
+        """One coder dispatch over a lane slab; returns host-side
         (coded u8 matrix, byte_lens, ovf) trimmed to the m real lanes."""
-        lens_j = jnp.asarray(lens_i)
-        if _use_pallas(params):
-            # Ranked path: parallel model precompute + streaming coder.
-            mesh = _dp_mesh()
-            if mesh is not None:
-                from .parallel.mesh import encode_blocks_ranked_sharded
-
-                words, bl, ov = encode_blocks_ranked_sharded(
-                    jnp.asarray(syms_i), lens_j, jnp.asarray(ic), params,
-                    n_words, mesh, delta,
-                )
-            else:
-                from .ops.pallas_encode import encode_blocks_ranked
-
-                words, bl, ov = encode_blocks_ranked(
-                    jnp.asarray(syms_i), lens_j, jnp.asarray(ic), params,
-                    n_words, delta,
-                )
+        args = (jnp.asarray(syms_i), jnp.asarray(lens_i), jnp.asarray(ic))
+        if mesh is None:
+            words, bl, ov = coder.encode(*args, params, n_words, delta)
         else:
-            lo, hi, tot, _el, _eh, _et = precompute_encode_model(
-                jnp.asarray(syms_i), lens_j, jnp.asarray(ic), params.freq_max,
-                delta=delta,
+            from .parallel.mesh import encode_symbols_sharded
+
+            words, bl, ov = encode_symbols_sharded(
+                *args, params, n_words, mesh, delta, coder
             )
-            words, bl, ov = encode_blocks_v2(lo, hi, tot, lens_j, params, n_words)
         bl_np = np.asarray(bl)[:m]
         ov_np = np.asarray(ov)[:m]
         # Trim to the words actually used and fetch as uint8.
@@ -327,17 +280,17 @@ def encode(
         byts = np.asarray(words_to_bytes_device(words[:m, :wcap]))
         return byts, bl_np, ov_np
 
-    # Large inputs go through the kernels in lane chunks so the ranked
-    # path's ~8 B/B HBM rank planes stay bounded (see _enc_chunk_bytes);
-    # chunks run sequentially (sync per chunk via the host fetch).
-    chunk_lanes = max(128, (_enc_chunk_bytes() // max(k, 1)) // 128 * 128)
+    # Large inputs go through the coder in lane chunks so the rank stage's
+    # tables and planes stay bounded (see _enc_chunk_bytes); chunks run
+    # sequentially (sync per chunk via the host fetch).
+    chunk_lanes = max(q, (_enc_chunk_bytes() // max(k, 1)) // q * q)
     cat_parts, bl_parts, raw_parts = [], [], []
     for s0 in range(0, n_blocks, chunk_lanes):
         s1 = min(s0 + chunk_lanes, n_blocks)
         if s0 == 0 and s1 == n_blocks:
             syms_i, lens_i = syms, lens  # pre-padded single dispatch
         else:
-            m_pad = _pad_lanes(s1 - s0)
+            m_pad = _pad_lanes(s1 - s0, q)
             end = min(s0 + m_pad, syms.shape[0])
             syms_i = syms[s0:end]
             lens_i = lens[s0:end]
@@ -372,7 +325,7 @@ def encode(
     coded_cat = (
         np.concatenate(cat_parts) if cat_parts else np.zeros(0, np.uint8)
     )
-    _mark("kernel+fetch")
+    _mark("coder+fetch")
     # Payload assembly: the coded bytes are already concatenated in block
     # order; stored-raw segments (rare — incompressible blocks) splice in
     # at their positions, splitting the coded run only at those points.
@@ -433,27 +386,18 @@ def decode(archive: bytes, _timings: Optional[dict] = None) -> bytes:
     )
     k = header.block_size
     n_words = _static_words(params, k, header.delta)
-    b_pad = _pad_lanes(n_blocks)
     arch_u8 = np.frombuffer(archive, dtype=np.uint8)
     stream_offs = header.stream_offs
     stream_lens = np.asarray(header.block_byte_lens, dtype=np.int64)
     if (stream_lens[raw_v] != block_lens[raw_v]).any():
         raise InvalidInputError()
-    # Ship compressed bytes to the device as uint8 (fast transfer path),
-    # sized to the words actually needed; pack to u32 on-device.  Two
-    # extra zero words guarantee the decoder's read-ahead past each
-    # stream's terminator sees zero bits (the v2 termination contract).
-    # Stored-raw blocks bypass the kernel entirely (len 0 lanes) and are
+    # Stored-raw blocks bypass the coder entirely (len 0 lanes) and are
     # spliced from the archive bytes at assembly.
     coded_lens = np.where(raw_v, 0, stream_lens)
-    coded_max = int(coded_lens.max(initial=4))
-    wcap = _pad_lanes(max(4, -(-coded_max // 4) + 2))
-    wcap = min(wcap, n_words + 2)
     # Lanes sorted by compressed length: blocks with similar bit rates
-    # land in the same lane tile, which keeps the Pallas decoder's
-    # stream-refill spans tight (the kernel's cost model); the host-side
-    # permutation is free (streams are spliced per-block anyway) and is
-    # inverted at assembly below.
+    # land in the same lane tile, so a kernel program's stream reads stay
+    # close together; the host-side permutation is free (streams are
+    # spliced per-block anyway) and is inverted at assembly below.
     order = np.argsort(coded_lens, kind="stable")
     _mark("parse")
 
@@ -475,85 +419,47 @@ def decode(archive: bytes, _timings: Optional[dict] = None) -> bytes:
         klens[: len(sel)] = sym_lens[sel]
         return byts, klens
 
-    # Per-block symbol counts for the kernels (0 for stored-raw blocks),
+    # Per-block symbol counts for the coder (0 for stored-raw blocks),
     # hoisted out of _stage so the chunk loop doesn't rebuild the full
     # n_blocks-length array once per chunk.
     sym_lens = np.where(raw_v, 0, block_lens)
 
-    if _use_pallas(params):
-        # Transposed host-built layout: no device-side byte relayouts
-        # (u8 transposes are slow on TPU), one upload, one kernel.
-        from .ops.pallas_decode import (
-            decode_blocks_pallas_t,
-            init_cum_column,
-            pad_geometry,
-        )
-
-        mesh = _dp_mesh()
-        if mesh is not None:
-            from .parallel.mesh import (
-                decode_blocks_pallas_sharded,
-                pallas_lane_quantum,
-            )
-
-            q = pallas_lane_quantum(mesh)
-            bp = ((n_blocks + q - 1) // q) * q
-            wn_pad, _ = pad_geometry(wcap, n_blocks)
-            byts, klens = _stage(order, bp, wn_pad * 4)
-            words = byts.view(">u4").astype(np.uint32)  # (bp, wn_pad)
-            _mark("stage")
-            out = decode_blocks_pallas_sharded(
-                jnp.asarray(words), jnp.asarray(klens), jnp.asarray(ic),
-                params, k, mesh, delta=header.delta,
-            )
-            syms_u8 = np.asarray(out)  # (bp, k), rows = lanes
-            _mark("kernel+fetch")
-        else:
-            # Lane chunking (mirror of the encode side): each dispatch
-            # covers a bounded slab of sorted lanes, so the device
-            # staging matrix + output plane stay bounded for multi-GB
-            # archives.  Lanes are sorted by coded length, so early
-            # chunks get smaller word capacities (cheaper uploads); the
-            # word capacity is re-derived per chunk and pad_geometry's
-            # coarse quantum keeps the distinct compile shapes few.
-            chunk_lanes = max(
-                128, (_dec_chunk_bytes() // max(k, 1)) // 128 * 128
-            )
-            icol = jnp.asarray(init_cum_column(ic, params))
-            syms_u8 = np.empty((n_blocks, k), dtype=np.uint8)
-            for s0 in range(0, n_blocks, chunk_lanes):
-                s1 = min(s0 + chunk_lanes, n_blocks)
-                sel = order[s0:s1]
-                m = s1 - s0
-                coded_max_i = int(coded_lens[sel].max(initial=0))
-                if coded_max_i == 0:  # all-raw slab: no kernel work
-                    syms_u8[s0:s1] = 0
-                    continue
-                wcap_i = min(max(4, -(-coded_max_i // 4) + 2), n_words + 2)
-                wn_pad, bp = pad_geometry(wcap_i, m)
-                byts, klens = _stage(sel, bp, wn_pad * 4)
-                lens_row = klens.reshape(1, bp)
-                # big-endian words, lane-minor: (wn_pad, bp)
-                words_t = np.ascontiguousarray(
-                    byts.view(">u4").astype(np.uint32).T
-                )
-                out = decode_blocks_pallas_t(
-                    jnp.asarray(words_t), jnp.asarray(lens_row),
-                    icol, params, k, delta=header.delta,
-                )
-                syms_u8[s0:s1] = np.asarray(out[:k, :m]).T
-            _mark("stage+kernel+fetch")
-    else:
-        byts, klens = _stage(order, b_pad, wcap * 4)
-        _mark("stage")
+    coder = backend.select(params)
+    mesh = _dp_mesh()
+    q = coder.lane_quantum * (1 if mesh is None else mesh.devices.size)
+    icj = jnp.asarray(ic)
+    # Lane chunking (mirror of the encode side): each dispatch covers a
+    # bounded slab of sorted lanes, so the device staging matrix and the
+    # symbol plane stay bounded for multi-GB archives.  Lanes are sorted
+    # by coded length, so early chunks get smaller word capacities; the
+    # capacity is re-derived per chunk and snapped by _pad_lanes to keep
+    # the distinct compile shapes few.
+    chunk_lanes = max(q, (_dec_chunk_bytes() // max(k, 1)) // q * q)
+    syms_u8 = np.empty((n_blocks, k), dtype=np.uint8)
+    for s0 in range(0, n_blocks, chunk_lanes):
+        s1 = min(s0 + chunk_lanes, n_blocks)
+        sel = order[s0:s1]
+        coded_max_i = int(coded_lens[sel].max(initial=0))
+        if coded_max_i == 0:  # all-raw slab: no coder work
+            syms_u8[s0:s1] = 0
+            continue
+        # Two extra zero words: the decoder's read-ahead past each
+        # stream's terminator sees zero bits (the v2 termination contract).
+        wcap = min(_pad_lanes(max(4, -(-coded_max_i // 4) + 2)), n_words + 2)
+        byts, klens = _stage(sel, _pad_lanes(s1 - s0, q), wcap * 4)
         words = bytes_to_words_device(jnp.asarray(byts))
-        syms_u8 = np.asarray(
-            decode_blocks(
-                words, jnp.asarray(klens), jnp.asarray(ic), params, k,
-                delta=header.delta,
+        if mesh is None:
+            out = coder.decode(words, jnp.asarray(klens), icj, params, k,
+                               header.delta)
+        else:
+            from .parallel.mesh import decode_blocks_sharded
+
+            out = decode_blocks_sharded(
+                words, jnp.asarray(klens), icj, params, k, mesh,
+                header.delta, coder,
             )
-        ).astype(np.uint8)[:, :k]
-        _mark("kernel+fetch")
+        syms_u8[s0:s1] = np.asarray(out[: s1 - s0])
+    _mark("stage+coder+fetch")
     # Undo the lane sort, splice stored-raw blocks, flatten: blocks are
     # contiguous and full-sized except the last, so the first orig_len
     # entries are exactly the original bytes.
@@ -580,7 +486,7 @@ def encode_compact(data: bytes, cfg: int) -> bytes:
     """Compress into an RXT compact archive (one v2 block, ~7-byte header).
 
     Small-input companion of the block container: identical coding
-    semantics (the TPU kernels decode the same payload bit-for-bit), but
+    semantics (the block coders decode the same payload bit-for-bit), but
     framed for the sizes where the 32-byte container header would erase
     the win.  Encoded by the native C++ v2 codec when available, else the
     oracle (both differential-tested bit-identical to the kernels).
@@ -625,7 +531,7 @@ def encode_auto(
     """Compress picking the smallest of the self-decodable RXT candidates.
 
     1. the RXT v2 block container with the warm-start prior (wins beyond
-       ~256 KiB: block-parallel, TPU encode/decode);
+       ~256 KiB: block-parallel device encode/decode);
     2. the container with uniform init (when the prior table doesn't pay);
     3. for inputs below ~1 MiB, RXT compact archives at a few adaptation
        increments (delta 2/8/16 — measured to cover text and binary,

@@ -17,7 +17,7 @@ observable semantics, verified against the reference's golden byte vectors
 * Both carry a byte counter exposed as ``count`` — bytes consumed from /
   emitted to the underlying stream (``bitio/mod.rs:13-16,71-75,141-145``).
 
-The TPU data path does *not* use this module per-bit; the JAX kernels pack
+The device data path does *not* use this module per-bit; the JAX coders pack
 bits with vectorized shift/mask arithmetic (see ``redux_tpu/ops``).  This
 module defines the format contract and serves the sequential compat path.
 """

@@ -1,6 +1,6 @@
 """redux-tpu command line interface.
 
-Parity with the reference binary (``/root/reference/src/main.rs``)::
+Parity with the reference binary (the reference's ``src/main.rs``)::
 
     redux-tpu (-c | -d) [-i <input file>] [-o <output file>]
 
@@ -10,7 +10,7 @@ Parity with the reference binary (``/root/reference/src/main.rs``)::
 * exit codes: 1 = usage, 2 = file open, 3 = codec error
   (main.rs:87,95,104,113,118).
 
-TPU-native extensions (flags the reference does not have):
+Extensions (flags the reference does not have):
 
 * ``--format {rxt,redux}``: RXT1 block-parallel archive (default) or the
   reference's bare single-stream format (``redux``), which is produced and

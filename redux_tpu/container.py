@@ -3,8 +3,8 @@
 The reference emits one bare stream per file with no framing (lib.rs:102-120)
 — inherently sequential to decode.  The redux_tpu container splits input
 into fixed-size blocks, each encoded independently with a freshly
-initialized model, so encode AND decode are data-parallel across TPU lanes,
-chips, and hosts.
+initialized model, so encode AND decode are data-parallel across device lanes,
+devices, and hosts.
 
 Version 2 (this round) diverges from the reference's per-stream framing
 deliberately — the container's stored lengths subsume it:
@@ -68,8 +68,8 @@ HEADER_BYTES = 32
 # Production configuration (chosen by the measured config studies,
 # docs/DESIGN_NOTES.md): (8,20,22) wide-u32 interval math, 4 KiB blocks,
 # adaptation increment 16, prior budget 128k counts.  Beats the
-# reference's compressed size on every corpus file > 256 KiB while keeping
-# all kernel arithmetic in dual-u32 (no 64-bit emulation on TPU).
+# reference's compressed size on every corpus file > 256 KiB; interval
+# products stay below 2**42.
 DEFAULT_BLOCK_SIZE = 1 << 12  # 4 KiB of symbols per block (round 3: more
 # lanes in flight = higher kernel throughput at ~1.5-4% ratio cost vs 32 KiB;
 # the warm-start prior absorbs most of the extra model-reset cost, and the
@@ -93,7 +93,7 @@ class ArchiveHeader:
     # Per-block stored-raw flags: arithmetic coding can expand adversarial
     # data by up to code_bits/8 per symbol; blocks whose coded stream would
     # reach their raw size are stored uncompressed instead (top bit of the
-    # stored length).  This also caps the TPU kernels' per-lane output
+    # stored length).  This also caps the coders' per-lane output
     # buffers at ~block_size bytes.
     block_raw: tuple = ()
     # Absolute archive offset of each block's payload bytes ((n_blocks,)
@@ -178,8 +178,8 @@ def parse_archive(
     if version != VERSION or delta < 1:
         raise InvalidInputError()
     # The RXT container is byte-oriented BY DESIGN (symbol_bits = 8): the
-    # TPU kernels' dense model rows are sized for the 257-symbol alphabet
-    # (pallas_decode.S_PAD) and encode() rejects other widths up front
+    # coder kernels' model rows are sized for the 257-symbol alphabet
+    # (triton_coder.supports) and encode() rejects other widths up front
     # (see README "Deliberate non-generalities"; generic symbol widths
     # live on the host/oracle path, model/mod.rs:63-71).
     if sb != 8:

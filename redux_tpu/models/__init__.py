@@ -9,7 +9,7 @@ Reference parity (``/root/reference/src/model/``):
 * :class:`~redux_tpu.models.fenwick.AdaptiveFenwickModel` — Fenwick/BIT
   model, O(log n) ops; the reference's production model
   (``adaptive_tree.rs``, lib.rs:11-12).
-* :mod:`~redux_tpu.models.dense` — the TPU-native formulation: model state
+* :mod:`~redux_tpu.models.dense` — the data-parallel formulation: model state
   as a dense cumulative row, batched per block; plus warm-start priors.
 
 All models share the 4-method contract of the reference ``Model`` trait

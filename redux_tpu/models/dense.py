@@ -1,8 +1,8 @@
-"""Dense cumulative-row model — the TPU-native formulation.
+"""Dense cumulative-row model — the data-parallel formulation.
 
-On TPU, the reference's Fenwick tree (O(log n) pointer chasing per op,
-adaptive_tree.rs:63-92) is the wrong shape: dependent scalar loads can't use
-the 8x128 VPU.  Instead the model state is ONE dense row of
+On a vector machine the reference's Fenwick tree (O(log n) pointer chasing
+per op, adaptive_tree.rs:63-92) is the wrong shape: dependent scalar loads
+leave the vector lanes idle.  Instead the model state is ONE dense row of
 ``symbol_count + 1`` cumulative frequencies per block (the same array the
 reference's linear model keeps, adaptive_linear.rs:26-28), on which every
 model operation is a wide vector op:
@@ -14,7 +14,7 @@ model operation is a wide vector op:
   (the reference freeze, adaptive_linear.rs:34 / adaptive_tree.rs:84).
 
 Batched over thousands of blocks (one row per block/lane) these become
-(lanes, 258)-shaped VPU ops — the core of the TPU decode kernel.  The
+(lanes, 258)-shaped vector ops — the core of the decoders.  The
 encode path does not even need the row: because the update is always
 "+1 above the symbol", the cumulative frequency of symbol ``v`` at time
 ``t`` has the closed form::

@@ -17,8 +17,8 @@ Semantics-exact counterpart of the reference's production model
   0-based update (adaptive_tree.rs:110,133 vs adaptive_linear.rs:56,65) —
   identical results by construction, proven by the differential tests.
 
-On TPU the pointer-chasing Fenwick walk loses to a dense cumulative row per
-block (see :mod:`redux_tpu.models.dense`); this class exists for the host
+On the device the pointer-chasing Fenwick walk loses to a dense cumulative
+row per block (see :mod:`redux_tpu.models.dense`); this class exists for the host
 compat path and to reproduce the reference's linear-vs-tree differential
 test tier (model/tests.rs) in our own test suite.
 """

@@ -15,7 +15,7 @@ Semantics-exact counterpart of the reference ``AdaptiveLinearModel``
   (adaptive_linear.rs:33-39).
 
 This model is deliberately simple and slow: it is the oracle against which
-both the Fenwick model and the TPU dense-row formulation are differentially
+both the Fenwick model and the dense-row formulation are differentially
 tested, exactly how the reference uses it (lib.rs:8-9, model/tests.rs).
 """
 

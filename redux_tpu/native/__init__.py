@@ -1,15 +1,18 @@
 """ctypes bindings for the native sequential codec.
 
-Builds ``redux_native.cpp`` on demand with g++ (cached as
-``_redux_native.so`` next to the source; pybind11 is unavailable in this
-environment so the binding layer is a small C ABI + ctypes).  The native
-codec is the fast host-side path for reference-format single streams and
-the empirical performance baseline (BASELINE.md).
+Builds ``redux_native.cpp`` on first use with g++ (cached as
+``_redux_native.so`` next to the source, which is not tracked; the binding
+layer is a small C ABI + ctypes).  Concurrent first uses (pytest-xdist
+workers, several processes) serialize on a file lock and build under a
+unique temporary name, so no process ever loads a half-written library.
+The native codec is the fast host-side path for reference-format single
+streams and the independent twin the device coders are checked against.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -32,15 +35,34 @@ class NativeUnavailable(RuntimeError):
 
 
 def _build() -> None:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        _SRC, "-o", _SO + ".tmp",
-    ]
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
     except (OSError, subprocess.SubprocessError) as e:
         raise NativeUnavailable(f"native build failed: {e}") from e
-    os.replace(_SO + ".tmp", _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _stale() -> bool:
+    return not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC)
+
+
+def _load() -> ctypes.CDLL:
+    """Build if missing or stale, then load; a library that does not load
+    here (built on another machine) is rebuilt once."""
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale():
+            _build()
+        try:
+            return ctypes.CDLL(_SO)
+        except OSError:
+            _build()
+            return ctypes.CDLL(_SO)
 
 
 def get_lib() -> ctypes.CDLL:
@@ -49,9 +71,7 @@ def get_lib() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            _build()
-        lib = ctypes.CDLL(_SO)
+        lib = _load()
         lib.rdx_compress.restype = ctypes.c_int64
         lib.rdx_compress.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -113,7 +133,7 @@ def compress_block_v2(
     """Native RXT v2 block payload encode (oracle.compress_block semantics).
 
     Fast host path for single-block/compact archives; bit-identical to
-    the oracle and the TPU kernels (differential-tested).
+    the oracle and the device coders (differential-tested).
     """
     lib = get_lib()
     cap = len(data) * 2 + 4096 + len(data) // 2

@@ -1,12 +1,11 @@
 // Native sequential codec for redux_tpu.
 //
 // A fresh C++ implementation of the reference's sequential arithmetic coder
-// (Rust, /root/reference/src/{bitio/mod.rs,codec.rs,model/adaptive_tree.rs})
+// (Rust, src/{bitio/mod.rs,codec.rs,model/adaptive_tree.rs} of the reference)
 // with identical observable semantics, used for:
 //   * the reference-format compatibility path (fast host encode/decode of
 //     bare single streams, byte-identical to the reference CLI);
-//   * the empirical performance baseline the TPU path is measured against
-//     (the reference publishes no numbers — BASELINE.md);
+//   * the independent twin the device coders are checked against;
 //   * a host-side fallback/cross-check for the block container.
 //
 // Semantics parity notes (file:line refer to the reference):

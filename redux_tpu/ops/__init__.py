@@ -1,4 +1,4 @@
-"""TPU data-path ops: parallel model precompute, vectorized coder, bit packing.
+"""Device data-path ops: parallel model precompute, block coders, bit packing.
 
 This package is the redux_tpu counterpart of the reference's hot loops
 (codec.rs:55-176, adaptive_tree.rs:63-136) re-derived for SPMD execution:
@@ -8,6 +8,9 @@ This package is the redux_tpu counterpart of the reference's hot loops
 * :mod:`coder` — the vectorized Witten–Neal–Cleary interval coder: scans
   over symbol positions with thousands of independent blocks in the lane
   dimension;
+* :mod:`triton_coder` — the same coder as Pallas GPU kernels (one program
+  per tile of blocks, the symbol loop inside it);
+* :mod:`backend` — the one place that picks the coder for the backend;
 * :mod:`bitpack` — host-side packing between per-lane u32 word buffers and
   byte streams;
 * :mod:`generic` — user-defined models (the reference's ``Model`` trait,

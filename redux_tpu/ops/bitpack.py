@@ -1,6 +1,6 @@
 """Host-side bit packing: per-lane byte streams ↔ u32 word matrices.
 
-The TPU kernels read and write compressed bits as big-endian u32 words
+The device coders read and write compressed bits as big-endian u32 words
 (bit ``i`` of a stream is bit ``31 - (i & 31)`` of word ``i >> 5``), which
 is exactly the reference's MSB-first byte order (bitio/mod.rs:78-181)
 extended to 32-bit lanes.  These numpy helpers convert between the

@@ -1,9 +1,9 @@
 """User-defined adaptive models on the jit device path.
 
 The reference's headline extension point is the ``Model`` trait
-(``/root/reference/src/lib.rs:14-15``; trait at ``model/mod.rs:17-29``):
+(the reference's ``src/lib.rs:14-15``; trait at ``model/mod.rs:17-29``):
 any type implementing four methods plugs into the codec.  redux_tpu's
-production TPU kernels specialize the dense order-0 ``+delta`` rule for
+production coders specialize the dense order-0 ``+delta`` rule for
 speed; this module restores trait-level generality ON DEVICE.  A
 :class:`JaxModel` bundles the trait's methods as pure lane-batched JAX
 functions over an arbitrary state pytree, and the coders below drive it

@@ -31,8 +31,8 @@ Computation is **fully parallel — no sequential scan**:
 3. an in-chunk pairwise term ``#{s < t in chunk : v_s (<|=) v_t}``
    (fused compare-multiply-reduce over the ``chunk×chunk`` triangle).
 
-This is what breaks the reference's encode-side bit-serial order on TPU:
-every op is a wide VPU fusion over (blocks × chunks × chunk) with no
+This is what breaks the reference's encode-side bit-serial order: every
+op is a wide fused compare-reduce over (blocks × chunks × chunk) with no
 dependence on the coder.
 """
 
@@ -56,7 +56,7 @@ def _ranks_parallel(
 
     Kept as a second formulation (differential-tested against the fused
     production path in :func:`_model_values_parallel`, which folds the
-    carry lookups into precombined tables — ~2x fewer VPU ops).
+    carry lookups into precombined tables — ~2x fewer vector ops).
     """
     B, Kp = symbols.shape
     nc = Kp // chunk
@@ -74,9 +74,8 @@ def _ranks_parallel(
     H = jnp.sum(onehot, axis=2, dtype=jnp.int32)  # (B, nc, n_symbols)
 
     # 2. Cross-chunk carries: exclusive prefix over chunks, then per-symbol
-    #    lookups as fused compare-reduces.  NOT gathers (XLA TPU
-    #    take_along_axis lowers to serialized dynamic-slice loops with a
-    #    pathological slow mode, profiled >100 ms here) and NOT one-hot
+    #    lookups as fused compare-reduces.  NOT gathers (take_along_axis
+    #    can lower to serialized dynamic-slice loops) and NOT one-hot
     #    matmuls (a dot would materialize the (B, nc, chunk, A) one-hot
     #    operand — gigabytes).  The masked reductions fuse like the
     #    histogram above: nothing 4-D is ever materialized.
@@ -114,7 +113,7 @@ def _model_values_parallel(
 
     The production formulation: instead of looking up four 257-wide
     tables per position (carry-lt, carry-eq, init-lo, init-hi — the
-    dominant VPU cost of the rank precompute), fold everything linear in
+    dominant cost of the rank precompute), fold everything linear in
     the carries into TWO precombined per-chunk tables,
 
         T_lo[a] = init_cum[a]   + delta * P[a]
@@ -217,9 +216,9 @@ def precompute_encode_model(
         n_upd_t = jnp.minimum(jnp.minimum(t_idx, lens[:, None]), t_freeze)
         tot = init_total + delta * n_upd_t
     else:
-        # The Pallas streaming encoder computes the closed-form totals
-        # in-kernel (encode_blocks_pallas) — skip materializing the
-        # (B, K) plane (one third of the rank output HBM traffic).
+        # The GPU encode kernel computes the closed-form totals in-kernel
+        # (triton_coder.encode_blocks) — skip materializing the (B, K)
+        # plane (one third of the rank output's device-memory traffic).
         tot = None
 
     n_upd = jnp.maximum(0, jnp.minimum(lens, t_freeze))  # updates before EOF

@@ -2,9 +2,9 @@
 
 A slow, obvious, bit-exact implementation of the reference's
 Witten–Neal–Cleary-style integer arithmetic coder
-(``/root/reference/src/codec.rs``), used as:
+(the reference's ``src/codec.rs``), used as:
 
-* the differential-test oracle for the TPU kernels (the same role the
+* the differential-test oracle for the device coders (the same role the
   reference's linear model plays for its tree model, lib.rs:8-9);
 * the compatibility path for encoding/decoding *reference-format*
   single streams (a redux_tpu 1-block payload is bit-identical to a
@@ -220,7 +220,7 @@ def compress_block(
     init_cum=None,
     delta: int = 1,
 ) -> bytes:
-    """Sequentially encode one v2 block payload (oracle for the TPU path)."""
+    """Sequentially encode one v2 block payload (oracle for the device path)."""
     from .models.dense import DenseModel
 
     model = DenseModel(params, init_cum, delta)

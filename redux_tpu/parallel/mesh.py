@@ -80,11 +80,13 @@ def encode_blocks_sharded(lo, hi, tot, lens, params: Parameters, n_words: int, m
     return _encode_sharded(lo, hi, tot, lens, params, n_words, mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("params", "k", "delta", "mesh"))
-def _decode_sharded(words, lens, init_cum, params: Parameters, k: int, delta: int, mesh: Mesh):
-    fn = functools.partial(coder.decode_blocks.__wrapped__, params=params, k=k, delta=delta)
+@functools.partial(
+    jax.jit, static_argnames=("params", "k", "delta", "mesh", "impl")
+)
+def _decode_sharded(words, lens, init_cum, params: Parameters, k: int,
+                    delta: int, mesh: Mesh, impl):
     return jax.shard_map(
-        fn,
+        lambda w, l, ic: impl.decode(w, l, ic, params, k, delta),
         mesh=mesh,
         in_specs=(P("dp"), P("dp"), P()),
         out_specs=P("dp"),
@@ -92,9 +94,17 @@ def _decode_sharded(words, lens, init_cum, params: Parameters, k: int, delta: in
     )(words, lens, init_cum)
 
 
-def decode_blocks_sharded(words, lens, init_cum, params: Parameters, k: int, mesh: Mesh, delta: int = 1):
-    """Sharded :func:`redux_tpu.ops.coder.decode_blocks`."""
-    return _decode_sharded(words, lens, init_cum, params, k, delta, mesh)
+def decode_blocks_sharded(words, lens, init_cum, params: Parameters, k: int,
+                          mesh: Mesh, delta: int = 1, impl=None):
+    """Sharded decode by ``impl``, a :class:`redux_tpu.ops.backend.Coder`
+    (default: the XLA scan, :func:`redux_tpu.ops.coder.decode_blocks`).
+    Returns ``(B, k)`` uint8 symbols, lanes partitioned over ``dp``; the
+    lane count must be a multiple of ``impl.lane_quantum`` times the mesh
+    size."""
+    from ..ops import backend
+
+    return _decode_sharded(words, lens, init_cum, params, k, delta, mesh,
+                           impl or backend.XLA)
 
 
 def initialize_multihost(**kwargs) -> None:
@@ -111,185 +121,45 @@ def initialize_multihost(**kwargs) -> None:
         pass  # already initialized
 
 
-# ---------------------------------------------------------------------------
-# Production (Pallas) path sharding.
-#
-# The Pallas kernels are pure per-lane programs, so they shard exactly like
-# the XLA coders: lanes over "dp", zero hot-path collectives.  The sharded
-# entries wrap the jit-level kernels (the host-side staging of the unsharded
-# wrappers runs once, outside shard_map); each device then launches its own
-# kernel over its lane shard.  On non-TPU backends the identical kernels run
-# in Pallas interpret mode, which is how the virtual-device mesh tests and
-# the driver's multi-chip dryrun exercise this path without hardware.
-# ---------------------------------------------------------------------------
-
-
-def pallas_lane_quantum(mesh: Mesh) -> int:
-    """Per-shard lane alignment: every shard must be whole kernel tiles.
-
-    Encode and decode kernels have independent tile widths
-    (``REDUX_TPU_LANES`` vs ``REDUX_TPU_DLANES``), and the sharded entries
-    below feed per-device lane shards to BOTH; the quantum is their lcm so
-    any shard divides into whole tiles for either kernel.  (Round-3 bug:
-    using only the encode width made decode's per-device reshape fail
-    whenever the two defaults diverged — e.g. 512-lane shards into the
-    1024-lane decode kernel.)
-    """
-    import math
-
-    from ..ops.pallas_decode import LANES as DLANES
-    from ..ops.pallas_encode import LANES as ELANES
-    from ..ops.pallas_model import LANES as MLANES
-
-    return math.lcm(ELANES, DLANES, MLANES) * mesh.devices.size
-
-
 @functools.partial(
-    jax.jit, static_argnames=("params", "n_words", "delta", "mesh")
+    jax.jit, static_argnames=("params", "delta", "with_tot", "mesh")
 )
-def _encode_pallas_sharded(syms_t, lens_row, init_col, params, n_words, delta, mesh):
-    from ..ops.pallas_encode import _encode_pallas_m_jit
-
-    fn = functools.partial(
-        _encode_pallas_m_jit.__wrapped__,
-        params=params, n_words=n_words, delta=delta,
-    )
-    lanes = P(None, "dp")  # all kernel operands carry lanes on axis 1
-    return jax.shard_map(
-        lambda s, l, ic: fn(s, l, ic),
-        mesh=mesh,
-        in_specs=(lanes, lanes, P()),
-        out_specs=(lanes, lanes, lanes),
-        check_vma=False,
-    )(syms_t, lens_row, init_col)
-
-
-def encode_blocks_pallas_m_sharded(
-    syms, lens, init_cum, params: Parameters, n_words: int, mesh: Mesh,
-    delta: int = 1,
-):
-    """Sharded model-in-kernel Pallas encoder (lanes over ``dp``).
-
-    Same contract as :func:`redux_tpu.ops.pallas_encode.encode_blocks_pallas_m`;
-    lanes are padded to whole per-device kernel tiles.
-    """
-    import numpy as np
-    import jax.numpy as jnp
-
-    from ..ops.pallas_decode import init_cum_column
-    from ..ops.pallas_encode import EPOCH, SLAB
-
-    b, k = syms.shape
-    q = pallas_lane_quantum(mesh)
-    b_pad = ((b + q - 1) // q) * q
-    k_pad = ((k + 1 + EPOCH - 1) // EPOCH) * EPOCH
-    nw_pad = ((n_words + SLAB - 1) // SLAB) * SLAB
-    with jax.enable_x64(False):
-        syms_t = jnp.pad(syms.astype(jnp.int32), ((0, b_pad - b), (0, k_pad - k))).T
-        lens_row = jnp.pad(
-            lens.astype(jnp.int32), (0, b_pad - b), constant_values=-1
-        ).reshape(1, b_pad)
-        init_col = jnp.asarray(init_cum_column(np.asarray(init_cum), params))
-        words_t, blen, ovf = _encode_pallas_sharded(
-            syms_t, lens_row, init_col, params, nw_pad, int(delta), mesh
-        )
-        return words_t.T[:b, :n_words], blen[0, :b], ovf[0, :b].astype(bool)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("params", "k", "delta", "mesh", "variant")
-)
-def _decode_pallas_sharded(words_t, lens_row, init_col, params, k, delta, mesh,
-                           variant: str = ""):
-    # `variant` keys the cache on the sweep/WSEL/probe env knobs the
-    # kernel trace reads (see pallas_decode._env_variant).
-    from ..ops.pallas_decode import _decode_pallas_jit
-
-    fn = functools.partial(
-        _decode_pallas_jit.__wrapped__, params=params, k=k, delta=delta
-    )
-    lanes = P(None, "dp")
-    return jax.shard_map(
-        lambda w, l, ic: fn(w, l, ic),
-        mesh=mesh,
-        in_specs=(lanes, lanes, P()),
-        out_specs=lanes,
-        check_vma=False,
-    )(words_t, lens_row, init_col)
-
-
-def decode_blocks_pallas_sharded(
-    words, lens, init_cum, params: Parameters, k: int, mesh: Mesh, delta: int = 1
-):
-    """Sharded Pallas decoder (lanes over ``dp``).
-
-    Same contract as :func:`redux_tpu.ops.pallas_decode.decode_blocks_pallas`.
-    """
-    import numpy as np
-    import jax.numpy as jnp
-
-    from ..ops.pallas_decode import init_cum_column, pad_geometry
-
-    b, wn = words.shape
-    wn_pad, _ = pad_geometry(wn, b)
-    q = pallas_lane_quantum(mesh)
-    b_pad = ((b + q - 1) // q) * q
-    with jax.enable_x64(False):
-        words_p = jnp.pad(words.astype(jnp.uint32), ((0, b_pad - b), (0, wn_pad - wn)))
-        words_t = words_p.T
-        lens_row = jnp.pad(lens.astype(jnp.int32), (0, b_pad - b)).reshape(1, b_pad)
-        init_col = jnp.asarray(init_cum_column(np.asarray(init_cum), params))
-        from ..ops.pallas_decode import _env_variant
-
-        out = _decode_pallas_sharded(
-            words_t, lens_row, init_col, params, k, int(delta), mesh,
-            variant=_env_variant(),
-        )
-        return out[:k, :b].T  # (B, k) uint8
-
-
-@functools.partial(
-    jax.jit, static_argnames=("params", "n_words", "delta", "mesh", "variant")
-)
-def _encode_ranked_sharded(syms, lens, init_cum, params, n_words, delta, mesh,
-                           variant: str = ""):
-    # `variant` keys the cache on the fused/model-sweep env knobs read at
-    # trace time inside encode_blocks_ranked.
-    from ..ops.pallas_encode import encode_blocks_ranked
+def _ranks_sharded(syms, lens, init_cum, params: Parameters, delta: int,
+                   with_tot: bool, mesh: Mesh):
+    from ..ops import backend
 
     spec = P("dp")
     return jax.shard_map(
-        lambda s, l, ic: encode_blocks_ranked(s, l, ic, params, n_words, delta),
+        lambda s, l, ic: backend.ranks(s, l, ic, params, delta, with_tot),
         mesh=mesh,
         in_specs=(spec, spec, P()),
-        out_specs=(spec, spec, spec),
+        out_specs=spec,
         check_vma=False,
     )(syms, lens, init_cum)
 
 
-def encode_blocks_ranked_sharded(
-    syms, lens, init_cum, params: Parameters, n_words: int, mesh: Mesh,
-    delta: int = 1,
-):
-    """Sharded production encode: rank precompute + streaming coder kernel,
-    both inside the shard (zero collectives).  Lanes padded to whole
-    per-device kernel tiles; same contract as ``encode_blocks_ranked``."""
-    import jax.numpy as jnp
+@functools.partial(
+    jax.jit, static_argnames=("params", "n_words", "delta", "mesh", "impl")
+)
+def _code_sharded(planes, lens, init_cum, params: Parameters, n_words: int,
+                  delta: int, mesh: Mesh, impl):
+    spec = P("dp")
+    return jax.shard_map(
+        lambda p_, l, ic: impl.code(p_, l, ic, params, n_words, delta),
+        mesh=mesh,
+        in_specs=(spec, spec, P()),
+        out_specs=(spec, spec, spec),
+        check_vma=False,
+    )(planes, lens, init_cum)
 
-    b = syms.shape[0]
-    q = pallas_lane_quantum(mesh)
-    b_pad = ((b + q - 1) // q) * q
-    syms_p = jnp.pad(syms.astype(jnp.int32), ((0, b_pad - b), (0, 0)))
-    lens_p = jnp.pad(lens.astype(jnp.int32), (0, b_pad - b))
-    import os as _os
 
-    from ..ops.pallas_model import _env_variant as _model_variant
-
-    variant = (
-        _os.environ.get("REDUX_TPU_ENC_FUSED", "0") + "|" + _model_variant()
-    )
-    words, blen, ovf = _encode_ranked_sharded(
-        syms_p, lens_p, init_cum, params, n_words, int(delta), mesh,
-        variant=variant,
-    )
-    return words[:b], blen[:b], ovf[:b]
+def encode_symbols_sharded(syms, lens, init_cum, params: Parameters,
+                           n_words: int, mesh: Mesh, delta: int, impl):
+    """Sharded :meth:`redux_tpu.ops.backend.Coder.encode` — the rank stage
+    and the coder each inside the shard (zero collectives), as two programs
+    like the unsharded path.  The lane count must be a multiple of
+    ``impl.lane_quantum`` times the mesh size."""
+    planes = _ranks_sharded(syms, lens, init_cum, params, delta,
+                            impl.name == "xla", mesh)
+    return _code_sharded(planes, lens, init_cum, params, n_words, delta,
+                         mesh, impl)

@@ -153,6 +153,7 @@ def run_scaling_worker(
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    from .. import corpus
     from ..models.dense import uniform_init_cum
     from ..ops.coder import max_block_words
     from ..ops.ranks import precompute_encode_model
@@ -166,8 +167,7 @@ def run_scaling_worker(
     bpc = 96  # blocks per host per chunk
     bph = max(bpc, (bytes_per_host // k) // bpc * bpc)
     n_chunks = bph // bpc
-    src = open("/root/reference/resources/calgary/book1", "rb").read()
-    data = (src * (bph * num_processes * k // len(src) + 1))
+    data = corpus.mixed(bph * num_processes * k, 1)
     ic = uniform_init_cum(params).astype(np.int32)
     mesh = data_parallel_mesh()
     shard = NamedSharding(mesh, P("dp"))

@@ -23,10 +23,9 @@ code_three_fourths  3 << (code_bits - 2)                       model/mod.rs:80
 code_max            (1 << code_bits) - 1                       model/mod.rs:81
 ==================  =========================================  ===============
 
-TPU-native addition: :attr:`Parameters.fits_u32` reports whether every
-intermediate product of the coder fits in 32 bits (``code + freq <= 32``), so
-the JAX kernels can pick pure-int32/uint32 arithmetic (native on TPU) instead
-of XLA-emulated 64-bit integer math.
+Addition: :attr:`Parameters.fits_u32` reports whether every intermediate
+product of the coder fits in 32 bits (``code + freq <= 32``), so the XLA
+coders can run in uint32 instead of int64.
 """
 
 from __future__ import annotations
@@ -41,21 +40,18 @@ DEFAULT_SYMBOL_BITS = 8
 DEFAULT_FREQ_BITS = 30
 DEFAULT_CODE_BITS = 32
 
-# TPU fast-path configuration: code_bits + freq_bits <= 32 keeps every
-# product/division of the coder in uint32, which maps to native 32-bit TPU
-# integer ops (no 64-bit emulation).
-TPU32_SYMBOL_BITS = 8
-TPU32_FREQ_BITS = 15
-TPU32_CODE_BITS = 17
+# 32-bit configuration: code_bits + freq_bits <= 32 keeps every
+# product/division of the coder in uint32.
+U32_SYMBOL_BITS = 8
+U32_FREQ_BITS = 15
+U32_CODE_BITS = 17
 
-# TPU wide production configuration: products up to 2**42 handled by the
-# dual-u32 split multiply + exact-f32 division (see ops/wide32.py) — still
-# no 64-bit integer emulation on TPU, but 32x the frequency resolution of
-# the pure-u32 config (big warm-start priors + large adaptation increments
-# without freezing).  Chosen by scripts/ratio_study*.py.
-TPUW_SYMBOL_BITS = 8
-TPUW_FREQ_BITS = 20
-TPUW_CODE_BITS = 22
+# Wide production configuration: products up to 2**42, 32x the frequency
+# resolution of the 32-bit config (big warm-start priors + large adaptation
+# increments without freezing).
+WIDE_SYMBOL_BITS = 8
+WIDE_FREQ_BITS = 20
+WIDE_CODE_BITS = 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +88,7 @@ class Parameters:
 
     @property
     def fits_u32(self) -> bool:
-        """True when all coder intermediates fit in uint32 (TPU-native ints).
+        """True when all coder intermediates fit in uint32.
 
         The widest products are ``range * high`` on encode
         (codec.rs:59) and ``(pending - low + 1) * count - 1`` on decode
@@ -106,23 +102,12 @@ class Parameters:
         """Reference CLI production config ``(8, 30, 32)`` (main.rs:108)."""
         return cls(DEFAULT_SYMBOL_BITS, DEFAULT_FREQ_BITS, DEFAULT_CODE_BITS)
 
-    @property
-    def fits_wide32(self) -> bool:
-        """True when the dual-u32 + exact-f32-division kernel path applies.
-
-        Requirements (see ops/wide32.py): products ``range * freq`` fit in
-        44 bits and every quotient fits 23 bits (f32 exactness margin for
-        the floor-division fixup), i.e. ``code_bits <= 23`` and
-        ``code_bits + freq_bits <= 44``.
-        """
-        return self.code_bits <= 23 and self.code_bits + self.freq_bits <= 44
-
     @classmethod
     def tpu32(cls) -> "Parameters":
-        """TPU 32-bit fast-path config ``(8, 15, 17)``."""
-        return cls(TPU32_SYMBOL_BITS, TPU32_FREQ_BITS, TPU32_CODE_BITS)
+        """32-bit config ``(8, 15, 17)``."""
+        return cls(U32_SYMBOL_BITS, U32_FREQ_BITS, U32_CODE_BITS)
 
     @classmethod
     def tpu_wide(cls) -> "Parameters":
-        """TPU wide production config ``(8, 20, 22)`` (dual-u32 path)."""
-        return cls(TPUW_SYMBOL_BITS, TPUW_FREQ_BITS, TPUW_CODE_BITS)
+        """Wide production config ``(8, 20, 22)``."""
+        return cls(WIDE_SYMBOL_BITS, WIDE_FREQ_BITS, WIDE_CODE_BITS)

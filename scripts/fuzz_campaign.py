@@ -1,23 +1,20 @@
-"""Randomized differential campaign: Pallas kernels vs the oracle.
+"""Randomized differential campaign: the GPU coder kernels vs the oracle.
 
-Usage: PYTHONPATH= python scripts/fuzz_campaign.py [minutes]
+Usage: python scripts/fuzz_campaign.py [minutes]
 
 Random valid (8, f, c) configs x random deltas x random priors x mixed
-block contents, comparing the interpret-mode Pallas kernels (bucket
-sweep, paired step, WSEL variants, fused encoder) against the
-sequential oracle bit-for-bit.  Every 4th trial additionally runs the
-generic device-path coders (ops/generic: dense JaxModel) against the
-specialized ranks+encode_blocks path and round-trips the result.  Not
-part of CI — a bounded bug hunt (round-5 runs: 517 trials clean before
-the generic leg was added).  The env toggling per trial relies on the
-variant-keyed jit caches (pallas_decode._env_variant).
+block contents, comparing the Pallas coder kernels of
+redux_tpu.ops.triton_coder (interpret mode, on the CPU) against the
+sequential oracle bit-for-bit, encode and decode.  Every 4th trial
+additionally runs the generic device-path coders (ops/generic: dense
+JaxModel) against the specialized ranks+encode_blocks path and
+round-trips the result.  Not part of CI — a bounded bug hunt.
 """
 import os
 import sys
 import time
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["REDUX_TPU_LANES"] = "128"
 
 import numpy as np
 
@@ -34,9 +31,10 @@ from redux_tpu.ops.generic import (
     dense_jax_model,
     encode_blocks_generic,
 )
-from redux_tpu.ops.pallas_decode import decode_blocks_pallas
-from redux_tpu.ops.pallas_model import model_lohi_pallas
 from redux_tpu.ops.ranks import precompute_encode_model
+from redux_tpu.ops.triton_coder import decode_blocks as kernel_decode
+from redux_tpu.ops.triton_coder import encode_blocks as kernel_encode
+from redux_tpu.ops.triton_coder import supports
 from redux_tpu.params import Parameters
 
 DEADLINE = time.time() + float(sys.argv[1]) * 60 if len(sys.argv) > 1 else time.time() + 20 * 60
@@ -70,8 +68,8 @@ while time.time() < DEADLINE:
     trial += 1
     sb, fb, cb = CONFIGS[rng.integers(0, len(CONFIGS))]
     params = Parameters(sb, fb, cb)
-    if not (params.fits_u32 or params.fits_wide32):
-        continue  # kernels require the 32-bit/wide32 range
+    if not supports(params):
+        continue
     delta = int(rng.integers(1, 256))
     k = int([48, 96, 160, 224, 288, 352][rng.integers(0, 6)])
     nb = int(rng.integers(1, 7))
@@ -88,12 +86,6 @@ while time.time() < DEADLINE:
         ic = prior_init_cum(full, params).astype(np.int32)
     if int(ic[-1]) >= params.freq_max:
         continue
-    # Env variants (jit cache is variant-keyed)
-    os.environ["REDUX_TPU_DECODE_SWEEP"] = ["bucket", "bucket", "bucket", "chunk", "full"][rng.integers(0, 5)]
-    os.environ["REDUX_TPU_MODEL_SWEEP"] = ["bucket", "bucket", "chunk"][rng.integers(0, 3)]
-    os.environ["REDUX_TPU_WSEL"] = str([1, 1, 2, 3][rng.integers(0, 4)])
-    os.environ["REDUX_TPU_MODEL_GROUP"] = str([1, 1, 2][rng.integers(0, 3)])
-
     streams = [
         oracle.compress_block(b, params, ic.astype(np.int64), delta)
         for b in blocks
@@ -106,42 +98,41 @@ while time.time() < DEADLINE:
     words = np.asarray(bytes_to_words_device(jnp.asarray(byts)))
     lens = np.array([len(b) for b in blocks], dtype=np.int32)
     got = np.asarray(
-        decode_blocks_pallas(
+        kernel_decode(
             jnp.asarray(words), jnp.asarray(lens), jnp.asarray(ic), params,
-            k, delta,
+            k, delta, interpret=True,
         )
     )
     for i, b in enumerate(blocks):
         exp = np.frombuffer(b, dtype=np.uint8)
         if not np.array_equal(got[i, : len(b)], exp):
             print(f"DECODE MISMATCH trial={trial} params={(sb,fb,cb)} "
-                  f"delta={delta} k={k} block={i} env="
-                  f"{ {k2: v for k2, v in os.environ.items() if k2.startswith('REDUX_TPU_')} }")
-            np.save("/tmp/fuzz_fail_words.npy", words)
+                  f"delta={delta} k={k} block={i}")
             sys.exit(1)
-    # model-values differential (kernel vs rank closed form)
+    # encode differential (rank precompute + kernel vs the oracle streams)
     syms = np.zeros((nb, k), np.int32)
     for i, b in enumerate(blocks):
         syms[i, : len(b)] = np.frombuffer(b, np.uint8)
-    lo_k, hi_k = model_lohi_pallas(
-        jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic), params, delta
-    )
     lo_r, hi_r, _, _, _, _ = precompute_encode_model(
         jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic),
         params.freq_max, delta=delta, with_tot=False,
     )
-    for i in range(nb):
-        n = int(lens[i])
-        if not (np.array_equal(np.asarray(lo_k)[i, :n], np.asarray(lo_r)[i, :n])
-                and np.array_equal(np.asarray(hi_k)[i, :n], np.asarray(hi_r)[i, :n])):
-            print(f"MODEL MISMATCH trial={trial} params={(sb,fb,cb)} "
+    kw, kl, kovf = kernel_encode(
+        lo_r, hi_r, jnp.asarray(lens), jnp.asarray(ic)[-1], params, wn, delta,
+        interpret=True,
+    )
+    for i, s in enumerate(streams):
+        got_s = np.asarray(kw)[i].astype(">u4").tobytes()[: int(np.asarray(kl)[i])]
+        if bool(np.asarray(kovf)[i]) or got_s != s:
+            print(f"ENCODE MISMATCH trial={trial} params={(sb,fb,cb)} "
                   f"delta={delta} k={k} block={i}")
             sys.exit(1)
     # generic device-path coders (every 4th trial; reference stream format)
     if trial % 4 == 0:
         model = dense_jax_model(params, ic, delta=delta)
+        # The last update may overshoot freq_max by up to delta - 1.
         w = max_block_words(
-            min(int(ic[-1]) + delta * (k + 1), params.freq_max),
+            min(int(ic[-1]) + delta * (k + 1), params.freq_max + delta),
             params.symbol_count, params, k,
         )
         gw, gl = encode_blocks_generic(
@@ -172,6 +163,6 @@ while time.time() < DEADLINE:
     if trial % 20 == 0:
         print(f"trial {trial} ok ({(sb,fb,cb)} d{delta} k{k})", flush=True)
     if trial % 40 == 0:
-        jax.clear_caches()  # bound host RAM: each (k, variant) compile persists
+        jax.clear_caches()  # bound host RAM: each (k, config) compile persists
 
 print(f"CAMPAIGN CLEAN: {trial} trials, no mismatches")

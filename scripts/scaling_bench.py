@@ -1,8 +1,9 @@
-"""Scaling-efficiency sweep over a virtual device mesh (BASELINE configs[5]).
+"""CPU scaling-efficiency sweep of the sharded XLA coders (BASELINE configs[5]).
 
 Weak scaling: fixed blocks-per-device, mesh sizes 1..8 (virtual CPU
-devices; real pods swap the mesh for TPU chips/hosts with the identical
-shard_map program).  Efficiency(N) = throughput(N) / (N * throughput(1)).
+devices, and separate CPU processes joined by jax.distributed).
+Efficiency(N) = throughput(N) / (N * throughput(1)).  CPU only: several
+JAX processes on one GPU host would each reserve the same card.
 
 Round-5 artifact upgrades: the multiprocess axis (the only section
 presented as scaling evidence) runs >= 5 trials at >= 8 MB/host and
@@ -12,9 +13,7 @@ key.  Round-4 upgrades kept:
 
 * >= 3 MB/device virtual sections so the measurement amortizes dispatch
   and scheduler noise into real codec work;
-* per-phase times (rank precompute / encode / decode / output gather);
-* the sharded PALLAS kernel path measured alongside the XLA scan path
-  (interpret mode on CPU — same shard_map, same kernels the TPU runs).
+* per-phase times (rank precompute / encode / decode / output gather).
 
 Round-3 methodology fixes (the round-2 artifact showed 0.58 at N=2):
 
@@ -26,9 +25,9 @@ Round-3 methodology fixes (the round-2 artifact showed 0.58 at N=2):
   N=1 "single device" silently uses every host core and the weak-scaling
   denominator is wrong on a 2-core host.
 
-Writes SCALING_r{N}.json at the repo root.
+Writes SCALING.json at the repo root (not tracked).
 
-Run:  PYTHONPATH=/root/repo python scripts/scaling_bench.py
+Run:  python scripts/scaling_bench.py
 """
 
 import json
@@ -49,16 +48,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import functools
 
-# Small kernel tiles for the interpret-mode Pallas section (must be set
-# before the kernel modules import; harmless for the XLA section).
-os.environ.setdefault("REDUX_TPU_LANES", "128")
-os.environ.setdefault("REDUX_TPU_DLANES", "128")
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from redux_tpu import corpus
 from redux_tpu.models.dense import uniform_init_cum
 from redux_tpu.ops.coder import encode_blocks_v2, max_block_words
 from redux_tpu.ops.ranks import precompute_encode_model
@@ -106,8 +101,7 @@ def run(n_dev, blocks_per_dev=384, k=8192, delta=16):
     params = Parameters.tpu_wide()
     mesh = data_parallel_mesh(n=n_dev)
     b = blocks_per_dev * n_dev
-    data = open("/root/reference/resources/calgary/book1", "rb").read()
-    data = (data * (b * k // len(data) + 1))[: b * k]
+    data = corpus.mixed(b * k, 1)
     syms = np.frombuffer(data, np.uint8).reshape(b, k).astype(np.int32)
     lens = np.full(b, k, np.int32)
     ic = uniform_init_cum(params).astype(np.int32)
@@ -144,54 +138,6 @@ def run(n_dev, blocks_per_dev=384, k=8192, delta=16):
     )
     return {"n_dev": n_dev, "bytes": len(data), "t_rank": t_rank,
             "t_enc": t_enc, "t_dec": t_dec, "t_gather": t_gather,
-            "gbps": 2 * len(data) / (t_enc + t_dec) / 1e9, "verified": bool(ok)}
-
-
-def run_pallas(n_dev, blocks_per_dev=1536, k=2048, delta=16):
-    """The sharded PALLAS kernels (interpret mode on CPU): the same
-    shard_map + kernel programs the TPU executes, so the artifact
-    measures the production path's scaling, not just the XLA scans."""
-    from redux_tpu.parallel.mesh import (
-        decode_blocks_pallas_sharded,
-        encode_blocks_ranked_sharded,
-        pallas_lane_quantum,
-    )
-
-    params = Parameters.tpu_wide()
-    mesh = data_parallel_mesh(n=n_dev)
-    q = pallas_lane_quantum(mesh)
-    b = (blocks_per_dev * n_dev // q) * q or q
-    data = open("/root/reference/resources/calgary/book1", "rb").read()
-    data = (data * (b * k // len(data) + 1))[: b * k]
-    syms = np.frombuffer(data, np.uint8).reshape(b, k).astype(np.int32)
-    lens = np.full(b, k, np.int32)
-    ic = uniform_init_cum(params).astype(np.int32)
-    shard = NamedSharding(mesh, P("dp"))
-    sj = jax.device_put(jnp.asarray(syms), shard)
-    lj = jax.device_put(jnp.asarray(lens), shard)
-    icj = jnp.asarray(ic)
-    n_words = k // 4 + 16
-
-    def timed(fn):
-        out = jax.block_until_ready(fn())
-        t0 = time.perf_counter()
-        out = jax.block_until_ready(fn())
-        return time.perf_counter() - t0, out
-
-    t_enc, (words, blens, _) = timed(
-        lambda: encode_blocks_ranked_sharded(
-            sj, lj, icj, params, n_words, mesh, delta
-        )
-    )
-    t_dec, dec = timed(
-        lambda: decode_blocks_pallas_sharded(
-            jnp.asarray(np.asarray(words)), lj, icj, params, k, mesh, delta=delta
-        )
-    )
-    ok = np.array_equal(
-        np.asarray(dec)[:, :k].astype(np.uint8), syms.astype(np.uint8)
-    )
-    return {"n_dev": n_dev, "bytes": len(data), "t_enc": t_enc, "t_dec": t_dec,
             "gbps": 2 * len(data) / (t_enc + t_dec) / 1e9, "verified": bool(ok)}
 
 
@@ -273,7 +219,6 @@ def main():
     # Virtual sizes beyond the 2 physical cores only measure runtime
     # time-sharing (recorded in round 3); keep the physical range.
     results = sweep(run, (1, 2))
-    pallas_results = sweep(run_pallas, (1, 2))
     out = {
         "mode": "weak-scaling; the ONLY scaling evidence here is "
                 "multiprocess_*: real multi-process jax.distributed, one "
@@ -283,8 +228,7 @@ def main():
                 "honest axis: independent OS processes (one per core, own XLA "
                 "runtime, jax.distributed barriers + ordered gather) — the "
                 "real multi-host execution model; efficiency = t(1)/t(N) at "
-                "fixed bytes/host.  Real pods swap the mesh for TPU "
-                "chips/hosts; identical shard_map program." % ncores,
+                "fixed bytes/host." % ncores,
         "physical_cores": ncores,
         "multiprocess_results": mp,
         "multiprocess_efficiency_n2": mp[-1]["efficiency"] if len(mp) > 1 else None,
@@ -300,12 +244,11 @@ def main():
                    "shards; kept only for per-phase composition data",
             "bytes_per_device": results[0]["bytes"] // results[0]["n_dev"],
             "results": results,
-            "pallas_interpret_results": pallas_results,
         },
     }
     path = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "SCALING_r5.json",
+        "SCALING.json",
     )
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

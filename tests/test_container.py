@@ -108,30 +108,43 @@ def test_raw_blocks_mixed_with_coded():
     assert api.decode(arch) == data
 
 
+def _kernel_coder(monkeypatch):
+    """Route the api to the GPU coder kernels, in interpret mode."""
+    from redux_tpu.ops import backend
+    from redux_tpu.ops.triton_coder import TB
+
+    kc = backend.Coder("triton", TB, interpret=True)
+    monkeypatch.setattr(backend, "select", lambda params: kc)
+    return kc
+
+
 def test_api_pallas_branch_roundtrip(monkeypatch):
-    """The api's Pallas branch (TPU hot path) via interpreter mode on CPU:
-    host-transposed words, lane sorting, raw splice, crc — all exercised."""
-    monkeypatch.setenv("REDUX_TPU_FORCE_PALLAS", "1")
+    """The api's GPU branch (the coder kernels) via interpret mode on the
+    CPU: lane sorting, raw splice, crc — all exercised, and the archive
+    is byte-identical to the XLA branch's."""
     rng = np.random.default_rng(11)
     data = (
         corpus_file("calgary", "paper5").read_bytes()[:6000]
         + rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()  # raw block mix
         + b"tail" * 700
     )
+    want = api.encode(data, block_size=2048)
+    _kernel_coder(monkeypatch)
     arch = api.encode(data, block_size=2048)
+    assert arch == want
     assert api.decode(arch) == data
 
 
 def test_api_pallas_decode_lane_chunking(monkeypatch):
     """Decode-side lane chunking (large-archive path) on the interpreter.
 
-    Forces the single-device Pallas branch with the minimum 128-lane
-    chunk so a ~300-block archive decodes across 3 kernel dispatches:
+    Forces the single-device kernel branch with the minimum chunk (one
+    lane quantum) so a ~300-block archive decodes across many dispatches:
     per-chunk word capacities, the sorted-lane slab boundaries, the
     all-raw slab skip, and the chunk reassembly all run.
     """
-    monkeypatch.setenv("REDUX_TPU_FORCE_PALLAS", "1")
-    monkeypatch.setenv("REDUX_TPU_DEC_CHUNK_MB", "0")  # floor: 128 lanes
+    _kernel_coder(monkeypatch)
+    monkeypatch.setenv("REDUX_DEC_CHUNK_MB", "0")  # floor: one quantum
     monkeypatch.setattr(api, "_dp_mesh", lambda: None)
     rng = np.random.default_rng(23)
     data = (
@@ -145,20 +158,40 @@ def test_api_pallas_decode_lane_chunking(monkeypatch):
     assert api.decode(arch) == data
 
 
-def test_use_pallas_on_tpu_backend(monkeypatch):
-    """Regression: _use_pallas must return True on a non-cpu backend.
-
-    Round 2 shipped with `jax` unbound in api.py, so the broad except
-    swallowed a NameError and silently disabled the Pallas kernels on
-    TPU; pin the selector's decision with the backend faked."""
+def test_selector_picks_the_coder_per_backend(monkeypatch):
+    """One selector: the CPU runs the XLA scans, the GPU the kernels (XLA
+    for configs the kernels do not take), any other backend is an error."""
     import jax as _jax
 
-    monkeypatch.delenv("REDUX_TPU_FORCE_PALLAS", raising=False)
-    monkeypatch.delenv("REDUX_TPU_NO_PALLAS", raising=False)
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    assert api._use_pallas(api.Parameters.tpu_wide()) is True
-    monkeypatch.setattr(_jax, "default_backend", lambda: "cpu")
-    assert api._use_pallas(api.Parameters.tpu_wide()) is False
+    from redux_tpu.ops import backend
+
+    wide = Parameters.tpu_wide()
+    assert backend.select(wide, "cpu") is backend.XLA
+    assert backend.select(wide, "gpu") is backend.TRITON
+    assert backend.select(Parameters.default(), "gpu") is backend.XLA
+    with pytest.raises(RuntimeError):
+        backend.select(wide, "metal")
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
+    assert backend.select(wide) is backend.TRITON
+    monkeypatch.setattr(_jax, "default_backend", lambda: "rocm")
+    with pytest.raises(RuntimeError):
+        api.encode(b"x" * 5000)
+
+
+def test_lane_padding_follows_the_coder_quantum():
+    from redux_tpu.ops.triton_coder import TB
+
+    assert api._pad_lanes(1) == 4 and api._pad_lanes(100) == 128
+    assert api._pad_lanes(129) == 256
+    assert api._pad_lanes(1, TB) == TB
+    assert api._pad_lanes(300, 4 * TB) % (4 * TB) == 0
+    assert api._pad_lanes(300, 8) == 384
+    # Auto block sizes: 256-aligned, >= 1024, block count just under a
+    # multiple of the fixed quantum — the same on every backend.
+    n = 10_000_000
+    k = api._auto_block_size(n)
+    assert k % 256 == 0 and k >= 1024
+    assert -(-n // k) <= -(-(-(-n // 4096)) // api._BLOCK_QUANTUM) * api._BLOCK_QUANTUM
 
 
 def test_compact_orig_len_dos_bound():

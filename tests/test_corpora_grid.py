@@ -3,10 +3,11 @@
 The reference runs every corpus x {Linear, Tree} x freq bits {14, 22, 30}
 (code = freq + 2), asserting bit-exact round-trips and byte-count
 consistency while printing ratio and MiB/s (tests/corpora.rs:24-41,
-87-259).  This tier mirrors it for the TPU-native pipeline:
+87-259).  This tier mirrors it for the block-parallel pipeline:
 
-* corpora x configs through the block-parallel api (XLA paths on CPU,
-  Pallas on TPU — bit-identical by the differential tiers);
+* seeded stand-ins for the corpora (:mod:`redux_tpu.corpus`) x configs
+  through the block-parallel api (XLA scans on the CPU, the coder kernels
+  on the GPU — bit-identical by the differential tiers);
 * round-trip bit-exactness and container length consistency;
 * per-corpus ratio + MiB/s printed (run pytest with -s);
 * the artificial/ corpus runs ungated (the reference's debug-build
@@ -18,6 +19,7 @@ Canterbury) is asserted by test_size_contract_vs_reference.
 """
 
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -26,15 +28,7 @@ import pytest
 from redux_tpu import api, container
 from redux_tpu.params import Parameters
 
-from conftest import RESOURCES
-
-CORPORA = {
-    "artificial": ["a.txt", "aaa.txt", "alphabet.txt", "random.txt"],
-    "calgary": None,  # None = every file in the directory
-    "canterbury": None,
-    "large": None,
-    "misc": None,
-}
+from redux_tpu import corpus
 
 # The reference grid uses freq {14, 22, 30} with code = freq + 2
 # (corpora.rs:35).  (8,14,16) and (8,22,24) run through the vectorized
@@ -48,19 +42,19 @@ GRID_PARAMS = [
 ]
 
 
-def _corpus_files(corpus):
-    d = RESOURCES / corpus
-    if not d.is_dir():
-        pytest.skip(f"corpus {corpus} not mounted")
-    names = CORPORA[corpus] or sorted(os.listdir(d))
-    return [(n, (d / n).read_bytes()) for n in names if (d / n).is_file()]
+def _corpus_files(name):
+    return [
+        (n, corpus.reference_file(name, n))
+        for n in sorted(corpus.REFERENCE_FILES[name])
+    ]
 
 
-def _run_corpus(corpus, params, block_size=32768, delta=8):
-    files = _corpus_files(corpus)
+def _run_corpus(name, params, block_size=32768, delta=8):
+    files = _corpus_files(name)
     total_in = total_out = 0
     t_enc = t_dec = 0.0
-    for name, data in files:
+    corpus_name = name
+    for fname, data in files:
         t0 = time.perf_counter()
         arch = api.encode(data, params=params, block_size=block_size, delta=delta)
         t_enc += time.perf_counter() - t0
@@ -84,14 +78,14 @@ def _run_corpus(corpus, params, block_size=32768, delta=8):
         t0 = time.perf_counter()
         out = api.decode(arch)
         t_dec += time.perf_counter() - t0
-        assert out == data, f"{corpus}/{name} round-trip mismatch"
+        assert out == data, f"{corpus_name}/{fname} round-trip mismatch"
         total_in += len(data)
         total_out += len(arch)
     ratio = total_in / max(1, total_out)
     mibs_e = total_in / max(t_enc, 1e-9) / (1 << 20)
     mibs_d = total_in / max(t_dec, 1e-9) / (1 << 20)
     print(
-        f"\n{corpus:11s} ({params.symbol_bits},{params.freq_bits},{params.code_bits}) "
+        f"\n{corpus_name:11s} ({params.symbol_bits},{params.freq_bits},{params.code_bits}) "
         f"d{delta}: AvgRatio {ratio:.3f}  Enc {mibs_e:.1f} MiB/s  Dec {mibs_d:.1f} MiB/s"
     )
 
@@ -114,7 +108,7 @@ def test_corpus_grid(corpus, params):
     _run_corpus(corpus, params)
 
 
-_REF_SIZE_CACHE = "/tmp/redux_tpu_ref_sizes.json"
+_REF_SIZE_CACHE = os.path.join(tempfile.gettempdir(), "redux_tpu_ref_sizes.json")
 
 
 def _reference_sizes(corpora):
@@ -130,13 +124,13 @@ def _reference_sizes(corpora):
         cache = {}
     ref_params = Parameters.default()
     dirty = False
-    for corpus in corpora:
-        for name, data in _corpus_files(corpus):
-            key = f"{corpus}/{name}:{len(data)}"
+    for c in corpora:
+        for name, data in _corpus_files(c):
+            key = f"{c}/{name}:{len(data)}"
             if key not in cache:
                 cache[key] = len(native.compress_bytes(data, ref_params))
                 dirty = True
-            yield corpus, name, data, cache[key]
+            yield c, name, data, cache[key]
     if dirty:
         json.dump(cache, open(_REF_SIZE_CACHE, "w"))
 
@@ -149,12 +143,12 @@ def test_size_contract_vs_reference():
     calgary/canterbury/large file; for files > 256 KiB the block-parallel
     container wins on its own (BASELINE.md size target; reference stream =
     the main.rs:108 config)."""
-    for corpus, name, data, ref in _reference_sizes(("calgary", "canterbury", "large")):
+    for cname, name, data, ref in _reference_sizes(("calgary", "canterbury", "large")):
         ours = api.encode_auto(data)
-        assert len(ours) <= ref, f"{corpus}/{name}: {len(ours)} > reference {ref}"
+        assert len(ours) <= ref, f"{cname}/{name}: {len(ours)} > reference {ref}"
         # The chosen candidate must be one of OUR formats.
         assert container.is_rxt_archive(ours) or container.is_compact_archive(ours)
-        assert api.decode_auto(ours) == data, f"{corpus}/{name}: round-trip"
+        assert api.decode_auto(ours) == data, f"{cname}/{name}: round-trip"
         if len(data) > api._COMPACT_MAX:
             # Beyond the compact range the block-parallel container must
             # win on its own (encode_auto's only candidates there are the
@@ -163,7 +157,7 @@ def test_size_contract_vs_reference():
                 len(api.encode(data)), len(api.encode(data, block_size=1 << 14))
             )
             assert rxt <= ref, (
-                f"{corpus}/{name}: block container {rxt} > reference "
+                f"{cname}/{name}: block container {rxt} > reference "
                 f"{ref} (must win without the compact candidate)"
             )
 
@@ -171,7 +165,7 @@ def test_size_contract_vs_reference():
 def test_determinism_same_archive():
     """Same input ⇒ byte-identical archive across runs (the race-detector
     analog of SURVEY §5: XLA + the codec are deterministic)."""
-    data = (RESOURCES / "calgary" / "paper1").read_bytes()
+    data = corpus.reference_file("calgary", "paper1")
     a = api.encode(data)
     b = api.encode(data)
     assert a == b

@@ -83,24 +83,25 @@ def test_xla_decode_blocks_overshoot(blocks):
 
 
 def test_pallas_decode_overshoot(blocks):
-    from redux_tpu.ops.pallas_decode import decode_blocks_pallas
+    from redux_tpu.ops.triton_coder import decode_blocks as kernel_decode
 
     data, streams, ic = blocks
     n_words = max_block_words(PARAMS.freq_max + DELTA, PARAMS.symbol_count, PARAMS, K)
     words = _words_matrix(streams, n_words)
     lens = np.full(len(data), K, dtype=np.int32)
     out = np.asarray(
-        decode_blocks_pallas(
+        kernel_decode(
             jnp.asarray(words), jnp.asarray(lens), jnp.asarray(ic), PARAMS, K,
-            delta=DELTA,
+            DELTA, interpret=True,
         )
     )
     for i, d in enumerate(data):
         assert out[i, :K].astype(np.uint8).tobytes() == d, f"block {i}"
 
 
-def test_pallas_encode_m_overshoot(blocks):
-    from redux_tpu.ops.pallas_encode import encode_blocks_pallas_m
+def test_pallas_encode_overshoot(blocks):
+    from redux_tpu.ops.backend import Coder
+    from redux_tpu.ops.triton_coder import TB
 
     data, streams, ic = blocks
     syms = np.zeros((len(data), K), dtype=np.int32)
@@ -108,7 +109,7 @@ def test_pallas_encode_m_overshoot(blocks):
         syms[i] = np.frombuffer(d, dtype=np.uint8)
     lens = np.full(len(data), K, dtype=np.int32)
     n_words = max_block_words(PARAMS.freq_max + DELTA, PARAMS.symbol_count, PARAMS, K)
-    words, byte_lens, ovf = encode_blocks_pallas_m(
+    words, byte_lens, ovf = Coder("triton", TB, interpret=True).encode(
         jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic), PARAMS, n_words, DELTA
     )
     assert not np.asarray(ovf).any()

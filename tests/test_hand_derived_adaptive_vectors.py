@@ -165,18 +165,17 @@ def test_vector_b_xla_coder_matches_derivation():
     assert bytes(dec[0, : len(INPUT_B)].astype(np.uint8)) == INPUT_B
 
 
-def test_vector_b_pallas_kernels_match_derivation(monkeypatch):
-    """Both Pallas coder families, on the production TWO-LEVEL sweep."""
+def test_vector_b_pallas_kernels_match_derivation():
+    """Both GPU coder kernels (interpret mode) reproduce the derivation."""
     import jax.numpy as jnp
 
-    from redux_tpu.ops.pallas_decode import decode_blocks_pallas
-    from redux_tpu.ops.pallas_encode import encode_blocks_pallas_m
+    from redux_tpu.ops.backend import Coder
+    from redux_tpu.ops.triton_coder import TB, decode_blocks
 
-    monkeypatch.setenv("REDUX_TPU_DECODE_SWEEP", "bucket")
     ic = uniform_init_cum(PARAMS_B).astype(np.int32)
     syms = jnp.asarray(np.frombuffer(INPUT_B, np.uint8)[None, :].astype(np.int32))
     lens = jnp.asarray(np.array([len(INPUT_B)], np.int32))
-    words, blens, ovf = encode_blocks_pallas_m(
+    words, blens, ovf = Coder("triton", TB, interpret=True).encode(
         syms, lens, jnp.asarray(ic), PARAMS_B, 8, DELTA_B
     )
     got = np.asarray(words)[0].astype(">u4").tobytes()[: int(np.asarray(blens)[0])]
@@ -184,34 +183,9 @@ def test_vector_b_pallas_kernels_match_derivation(monkeypatch):
     wpad = np.zeros((1, 8), np.uint32)
     wpad[0, :2] = np.frombuffer(EXPECTED_B + b"\0\0", ">u4")
     dec = np.asarray(
-        decode_blocks_pallas(
+        decode_blocks(
             jnp.asarray(wpad), lens, jnp.asarray(ic), PARAMS_B,
-            len(INPUT_B), DELTA_B,
+            len(INPUT_B), DELTA_B, interpret=True,
         )
     )
     assert bytes(dec[0, : len(INPUT_B)]) == INPUT_B
-
-
-def test_vector_b_model_values_kernel_matches_derivation(monkeypatch):
-    """The encode model-values kernel (production TPU encode path) on the
-    two-level sweep reproduces the hand-derived (flo, fhi) table,
-    including the frozen overshot count step."""
-    from redux_tpu.ops.pallas_model import model_lohi_pallas
-
-    monkeypatch.setenv("REDUX_TPU_MODEL_SWEEP", "bucket")
-    ic = uniform_init_cum(PARAMS_B).astype(np.int32)
-    syms = np.frombuffer(INPUT_B, np.uint8)[None, :].astype(np.int32)
-    lens = np.array([len(INPUT_B)], np.int32)
-    import jax.numpy as jnp
-
-    lo, hi = model_lohi_pallas(
-        jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic), PARAMS_B,
-        DELTA_B,
-    )
-    # The hand derivation's (flo, fhi) per symbol (docstring table).
-    np.testing.assert_array_equal(
-        np.asarray(lo)[0, :5], [65, 321, 577, 833, 1089]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(hi)[0, :5], [66, 322, 578, 834, 1090]
-    )

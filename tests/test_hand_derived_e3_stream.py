@@ -112,13 +112,13 @@ def test_v2_terminator_xla_coder_matches_derivation():
 def test_v2_terminator_pallas_kernels_match_derivation():
     import jax.numpy as jnp
 
-    from redux_tpu.ops.pallas_decode import decode_blocks_pallas
-    from redux_tpu.ops.pallas_encode import encode_blocks_pallas_m
+    from redux_tpu.ops.backend import Coder
+    from redux_tpu.ops.triton_coder import TB, decode_blocks
 
     ic = uniform_init_cum(PARAMS).astype(np.int32)
     syms = jnp.asarray(np.frombuffer(INPUT, np.uint8)[None, :].astype(np.int32))
     lens = jnp.asarray(np.array([1], np.int32))
-    words, blens, ovf = encode_blocks_pallas_m(
+    words, blens, ovf = Coder("triton", TB, interpret=True).encode(
         syms, lens, jnp.asarray(ic), PARAMS, 8, 1
     )
     got = np.asarray(words)[0].astype(">u4").tobytes()[: int(np.asarray(blens)[0])]
@@ -126,8 +126,8 @@ def test_v2_terminator_pallas_kernels_match_derivation():
     wpad = np.zeros((1, 8), np.uint32)
     wpad[0, 0] = int.from_bytes(EXPECTED_V2 + b"\0\0", "big")
     dec = np.asarray(
-        decode_blocks_pallas(
-            jnp.asarray(wpad), lens, jnp.asarray(ic), PARAMS, 1, 1
+        decode_blocks(
+            jnp.asarray(wpad), lens, jnp.asarray(ic), PARAMS, 1, 1, interpret=True
         )
     )
     assert bytes(dec[0, :1]) == INPUT

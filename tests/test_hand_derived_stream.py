@@ -1,7 +1,7 @@
 """A reference stream derived BY HAND from codec.rs — independent format anchor.
 
 Every other stream check in this repo is differential (oracle vs Fenwick vs
-native C++ vs TPU kernels), which anchors to the reference only through the
+native C++ vs device coders), which anchors to the reference only through the
 transcribed bitio golden vectors.  This test closes the remaining loop: the
 expected bytes below are worked out step by step from the reference's coder
 arithmetic (codec.rs:28-120) and bit I/O (bitio/mod.rs:148-198) with plain

@@ -1,6 +1,6 @@
 """Vectorized coder vs. sequential oracle — bit-exact differential tests.
 
-The TPU encode path must produce byte-identical per-block streams to the
+The device encode path must produce byte-identical per-block streams to the
 reference-semantics oracle (the analog of the reference's linear-vs-tree
 differential tier, model/tests.rs, lifted to whole-codec level), and the
 vectorized decoder must invert both.
@@ -22,7 +22,7 @@ from conftest import corpus_file
 
 CONFIGS = [
     Parameters(8, 14, 16),  # doc example; u32 path
-    Parameters(8, 15, 17),  # TPU fast config; u32 path
+    Parameters(8, 15, 17),  # 32-bit config; u32 path
     Parameters(8, 30, 32),  # production config; i64 path
     Parameters(8, 10, 16),  # heavy adaptation freeze; u32 path
 ]

@@ -4,7 +4,7 @@ The reference proves its optimized Fenwick model against the slow linear
 model by driving both with identical random streams and asserting identical
 ranges, inverse lookups, and (debug) full frequency tables
 (``/root/reference/src/model/tests.rs``).  We extend the same tier to a
-three-way check: linear oracle ≡ Fenwick ≡ dense-row (the TPU formulation).
+three-way check: linear oracle ≡ Fenwick ≡ dense-row (the data-parallel formulation).
 
 Grid: a subset of the reference's {4,8,12}-bit × (freq,code) grid
 (model/tests.rs:95-251) with iteration counts sized for CI.
@@ -28,7 +28,7 @@ GRID = [
     (4, 14, 16, 2000),
     (4, 30, 32, 2000),
     (8, 14, 16, 2000),  # doc-example config
-    (8, 15, 17, 2000),  # TPU u32 fast path config
+    (8, 15, 17, 2000),  # 32-bit config
     (8, 30, 32, 2000),  # production config
     (12, 22, 24, 1500),
 ]

@@ -81,7 +81,7 @@ def test_calgary_slice_all_models():
 def test_known_symbol_count_decode():
     # Stored-length termination (container extension): decoding exactly n
     # symbols recovers the data without consuming the EOF symbol.
-    data = b"hello, adaptive arithmetic coding on tpu!" * 20
+    data = b"hello, adaptive arithmetic coding on device!" * 20
     p = Parameters(8, 14, 16)
     comp = compress_bytes(data, AdaptiveFenwickModel(p))
     codec = Codec(AdaptiveFenwickModel(p))

@@ -1,19 +1,18 @@
-"""Differential tests: Pallas decode kernel vs the sequential v2 oracle.
+"""Differential tests: the Pallas GPU decode kernel vs the sequential v2 oracle.
 
-On CPU the kernel runs in Pallas interpreter mode — identical semantics
-to the Mosaic-compiled TPU path, so these tests pin the kernel's
-bit-level behavior without TPU hardware.
+On the CPU the kernel runs in Pallas interpret mode (``interpret=True``):
+the semantics the Triton route compiles, so these tests pin the kernel's
+bit-level behavior without a GPU.
 """
-
-import io
 
 import numpy as np
 import pytest
 
 from redux_tpu import oracle
-from redux_tpu.models.dense import prior_init_cum, uniform_init_cum
+from redux_tpu.models.dense import prior_init_cum, quantize_prior, uniform_init_cum
+from redux_tpu.ops import coder
 from redux_tpu.ops.coder import bytes_to_words_device
-from redux_tpu.ops.pallas_decode import decode_blocks_pallas
+from redux_tpu.ops.triton_coder import TB, decode_blocks
 from redux_tpu.params import Parameters
 
 import jax.numpy as jnp
@@ -31,19 +30,23 @@ def _to_words(streams, extra_words=4):
     return np.asarray(bytes_to_words_device(jnp.asarray(byts)))
 
 
-def _roundtrip(blocks, params, init_cum, delta, k):
+def _roundtrip(blocks, params, init_cum, delta, k, extra_words=4):
     streams = _encode_blocks_oracle(blocks, params, init_cum, delta)
-    words = _to_words(streams)
+    words = _to_words(streams, extra_words)
     lens = np.array([len(b) for b in blocks], dtype=np.int32)
     got = np.asarray(
-        decode_blocks_pallas(
-            jnp.asarray(words), jnp.asarray(lens), jnp.asarray(init_cum), params, k, delta
+        decode_blocks(
+            jnp.asarray(words), jnp.asarray(lens), jnp.asarray(init_cum), params,
+            k, delta, interpret=True,
         )
     )
+    assert got.shape == (len(blocks), k) and got.dtype == np.uint8
     for i, b in enumerate(blocks):
         np.testing.assert_array_equal(
             got[i, : len(b)], np.frombuffer(b, dtype=np.uint8), err_msg=f"block {i}"
         )
+        assert not got[i, len(b) :].any(), f"block {i}: symbols past lens"
+    return words, lens, got
 
 
 def test_wide_config_random_and_text():
@@ -81,8 +84,6 @@ def test_prior_init_and_freeze():
     k = 400
     data = (b"aaabbbcccddd" * 200)[:k]
     hist = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
-    from redux_tpu.models.dense import quantize_prior
-
     extra = quantize_prior(hist, params, 4096)
     full = np.zeros(params.symbol_count, dtype=np.int64)
     full[: extra.shape[0]] = extra
@@ -92,18 +93,19 @@ def test_prior_init_and_freeze():
 
 
 def test_many_lanes_cross_tile():
-    """> 128 blocks exercises the lane-tile grid dimension."""
+    """More blocks than one program's TB lanes: the grid and the lane
+    padding of the last program."""
     params = Parameters.tpu_wide()
     rng = np.random.default_rng(3)
     k = 96
-    blocks = [bytes(rng.integers(0, 256, rng.integers(1, k + 1), dtype=np.uint8)) for _ in range(131)]
+    blocks = [bytes(rng.integers(0, 256, rng.integers(1, k + 1), dtype=np.uint8)) for _ in range(2 * TB + 3)]
     ic = uniform_init_cum(params).astype(np.int32)
     _roundtrip(blocks, params, ic, delta=16, k=k)
 
 
 def test_divergent_rates_slab_refill():
-    """Mix incompressible and constant blocks: maximal cursor divergence,
-    exercising the dynamic-span slab refill across many slabs."""
+    """Incompressible and constant blocks in one program: each lane's
+    stream position diverges across thousands of words."""
     params = Parameters.tpu_wide()
     rng = np.random.default_rng(4)
     k = 4096
@@ -118,70 +120,40 @@ def test_divergent_rates_slab_refill():
     _roundtrip(blocks, params, ic, delta=16, k=k)
 
 
-@pytest.mark.parametrize("mode", ["bucket", "bucketsplit"])
-def test_bucket_sweep_matches_oracle(monkeypatch, mode):
-    """The production TWO-LEVEL sweep (hardware default) on the
-    interpreter: coarse row maintenance, the fused update-landing /
-    window-select pass, and the coarse-min fhi fallback (lc == BS) all
-    run — including a freeze-overshoot config (delta * k past freq_max)
-    and degenerate single-symbol blocks whose bucket never changes.
-    The distinct k keeps the jit cache from reusing a full-sweep
-    compile."""
-    monkeypatch.setenv("REDUX_TPU_DECODE_SWEEP", mode)
-    monkeypatch.setenv("REDUX_TPU_WSEL", "4")  # split select chains variant
-    params = Parameters(8, 20, 22)
-    rng = np.random.default_rng(7)
-    k = 160
-    data = (b"aaabbbcccddd" * 100)[:k]
-    hist = np.bincount(np.frombuffer(data, np.uint8), minlength=256)
-    from redux_tpu.models.dense import quantize_prior
-
-    extra = quantize_prior(hist, params, 4096)
-    full = np.zeros(params.symbol_count, dtype=np.int64)
-    full[: extra.shape[0]] = extra
-    ic = prior_init_cum(full, params).astype(np.int32)
-    blocks = [
-        data,
-        bytes(rng.integers(0, 256, k, dtype=np.uint8)),
-        bytes([0] * k),  # bucket 0 forever; lc == BS fallback at row 0 ties
-        bytes([255] * k),  # last data bucket
-        bytes(rng.integers(250, 256, k, dtype=np.uint8)),  # top-bucket mix
-        b"\xff",
-    ]
-    _roundtrip(blocks, params, ic, delta=64, k=k)  # delta*k overshoots cap
-
-
-def test_two_phase_interleave_matches_oracle(monkeypatch):
-    """The production TPU kernel config on the interpreter: phases=2 (two
-    independent lane tiles interleaved in one program) + the chunked
-    sweep — same bitstream contract, including an ODD tile count that
-    forces the internal phase padding.  The env var must be set because
-    interpret mode defaults to the (bit-identical) full-mask sweep; the
-    distinct (k, phases) keeps the jit cache from reusing a full-sweep
-    compile."""
-    monkeypatch.setenv("REDUX_TPU_DECODE_SWEEP", "chunk")
-    monkeypatch.setenv("REDUX_TPU_DECODE_ACCW", "2")  # split accumulators
+def test_reads_past_the_word_buffer_are_zero_bits():
+    """With no padding words at all, the decoder's read-ahead past the
+    buffer's end must see zero bits (the v2 termination contract)."""
     params = Parameters.tpu_wide()
-    rng = np.random.default_rng(5)
-    k = 96
-    ic = uniform_init_cum(params)
-    # 3 tiles of the conftest-pinned 128-lane width: 300 blocks pad to
-    # 384 lanes -> t_pad = 4 tiles, phase B's last tile fully masked.
-    blocks = []
-    for i in range(300):
-        n = int(rng.integers(1, k + 1))
-        src = rng.integers(0, 256 if i % 3 else 7, n, dtype=np.uint8)
-        blocks.append(bytes(src))
+    rng = np.random.default_rng(8)
+    k = 64
+    blocks = [bytes(rng.integers(0, 256, k, dtype=np.uint8)), b"ab" * 32, b"q"]
+    ic = uniform_init_cum(params).astype(np.int32)
+    _roundtrip(blocks, params, ic, delta=16, k=k, extra_words=0)
+
+
+def test_matches_xla_scan_on_garbage_free_lanes():
+    """Kernel and XLA scan agree symbol for symbol, padding lanes
+    (lens 0) included."""
+    params = Parameters.tpu_wide()
+    rng = np.random.default_rng(9)
+    k = 128
+    blocks = [bytes(rng.integers(0, 256, rng.integers(1, k + 1), dtype=np.uint8)) for _ in range(5)]
+    blocks.append(b"")
+    ic = uniform_init_cum(params).astype(np.int32)
     streams = _encode_blocks_oracle(blocks, params, ic, 16)
-    words = _to_words(streams)
+    words = _to_words([s or b"\0" for s in streams])
     lens = np.array([len(b) for b in blocks], dtype=np.int32)
-    got = np.asarray(
-        decode_blocks_pallas(
-            jnp.asarray(words), jnp.asarray(lens), jnp.asarray(ic), params,
-            k, 16, phases=2,
-        )
-    )
-    for i, b in enumerate(blocks):
-        np.testing.assert_array_equal(
-            got[i, : len(b)], np.frombuffer(b, dtype=np.uint8), err_msg=f"block {i}"
-        )
+    args = (jnp.asarray(words), jnp.asarray(lens), jnp.asarray(ic), params, k)
+    got = np.asarray(decode_blocks(*args, 16, interpret=True))
+    want = np.asarray(coder.decode_blocks(*args, delta=16))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rejects_configs_beyond_32_bit_renorm():
+    """code_bits > 30 does not fit the kernel's 32-bit renorm words."""
+    params = Parameters.default()  # (8, 30, 32)
+    words = jnp.zeros((1, 4), jnp.uint32)
+    with pytest.raises(ValueError):
+        decode_blocks(words, jnp.ones((1,), jnp.int32),
+                      jnp.asarray(uniform_init_cum(params)), params, 4, 1,
+                      interpret=True)

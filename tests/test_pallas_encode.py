@@ -1,39 +1,34 @@
-"""Differential tests: Pallas encode kernel vs the XLA v2 encoder/oracle.
+"""Differential tests: the Pallas GPU encode kernel vs the XLA v2 encoder/oracle.
 
-CPU runs use Pallas interpreter mode — the same semantics the Mosaic
-TPU path compiles, so stream bit-exactness is pinned without hardware.
+CPU runs use Pallas interpret mode (``interpret=True``): the semantics the
+Triton route compiles, so stream bit-exactness is pinned without a GPU.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
 from redux_tpu import oracle
-from redux_tpu.models.dense import uniform_init_cum
-from redux_tpu.ops.coder import max_block_words
-from redux_tpu.ops.pallas_encode import encode_blocks_pallas, encode_blocks_pallas_m
+from redux_tpu.models.dense import prior_init_cum, uniform_init_cum
+from redux_tpu.ops import backend
+from redux_tpu.ops.coder import encode_blocks_v2, max_block_words
 from redux_tpu.ops.ranks import precompute_encode_model
+from redux_tpu.ops.triton_coder import TB, encode_blocks
 from redux_tpu.params import Parameters
 
+KERNEL = backend.Coder("triton", TB, interpret=True)
 
-def _run(blocks, params, delta, k):
+
+def _blocks_matrix(blocks, k):
     n = len(blocks)
     syms = np.zeros((n, k), dtype=np.int32)
     lens = np.zeros(n, dtype=np.int32)
     for i, d in enumerate(blocks):
         syms[i, : len(d)] = np.frombuffer(d, dtype=np.uint8)
         lens[i] = len(d)
-    ic = uniform_init_cum(params).astype(np.int32)
-    lo, hi, tot, _, _, _ = precompute_encode_model(
-        jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic), params.freq_max,
-        delta=delta, with_tot=False,
-    )
-    assert tot is None  # totals are computed in-kernel (closed form of t)
-    max_count = min(params.symbol_count + delta * k, params.freq_max)
-    n_words = max_block_words(max_count, params.symbol_count, params, k)
-    words, byte_lens, ovf = encode_blocks_pallas(
-        lo, hi, jnp.asarray(lens), jnp.asarray(ic, dtype=jnp.int32)[-1],
-        params, n_words, delta
-    )
+    return syms, lens
+
+
+def _check(blocks, words, byte_lens, ovf, params, ic, delta):
     words = np.asarray(words)
     byte_lens = np.asarray(byte_lens)
     assert not np.asarray(ovf).any()
@@ -44,6 +39,24 @@ def _run(blocks, params, delta, k):
             f"block {i}: len {len(got)} vs {len(exp)}; "
             f"first diff at {next((j for j in range(min(len(got), len(exp))) if got[j] != exp[j]), -1)}"
         )
+
+
+def _run(blocks, params, delta, k):
+    syms, lens = _blocks_matrix(blocks, k)
+    ic = uniform_init_cum(params).astype(np.int32)
+    lo, hi, tot, _, _, _ = precompute_encode_model(
+        jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic), params.freq_max,
+        delta=delta, with_tot=False,
+    )
+    assert tot is None  # totals are computed in-kernel (closed form of t)
+    max_count = min(params.symbol_count + delta * k, params.freq_max)
+    n_words = max_block_words(max_count, params.symbol_count, params, k)
+    words, byte_lens, ovf = encode_blocks(
+        lo, hi, jnp.asarray(lens), jnp.asarray(ic, dtype=jnp.int32)[-1],
+        params, n_words, delta, interpret=True,
+    )
+    assert words.shape == (len(blocks), n_words)
+    _check(blocks, words, byte_lens, ovf, params, ic, delta)
 
 
 def test_wide_config_mixed_blocks():
@@ -72,11 +85,11 @@ def test_u32_config_delta1():
 
 
 def test_epoch_boundaries_and_tiles():
-    """k not a multiple of the 32-step epoch; > 128 lanes (2 tiles)."""
+    """Odd k; more blocks than one program's TB lanes (lane padding)."""
     params = Parameters.tpu_wide()
     rng = np.random.default_rng(2)
     k = 77
-    blocks = [bytes(rng.integers(0, 256, rng.integers(1, k + 1), dtype=np.uint8)) for _ in range(130)]
+    blocks = [bytes(rng.integers(0, 256, rng.integers(1, k + 1), dtype=np.uint8)) for _ in range(TB + 2)]
     _run(blocks, params, delta=16, k=k)
 
 
@@ -88,36 +101,24 @@ def test_freeze_plateau():
     _run(blocks, params, delta=4, k=k)
 
 
-def _run_m(blocks, params, delta, k, prior=False):
-    """Model-in-kernel encoder vs the sequential oracle."""
-    n = len(blocks)
-    syms = np.zeros((n, k), dtype=np.uint8)
-    lens = np.zeros(n, dtype=np.int32)
-    for i, d in enumerate(blocks):
-        syms[i, : len(d)] = np.frombuffer(d, dtype=np.uint8)
-        lens[i] = len(d)
+def _run_ranked(blocks, params, delta, k, prior=False):
+    """The GPU coder's whole encode (rank precompute + kernel) vs the oracle."""
+    syms, lens = _blocks_matrix(blocks, k)
     ic = uniform_init_cum(params).astype(np.int32)
     if prior:
-        from redux_tpu.models.dense import prior_init_cum
-
         full = np.zeros(params.symbol_count, dtype=np.int64)
         full[:256] = 3
         ic = prior_init_cum(full, params).astype(np.int32)
     max_count = min(int(ic[-1]) + delta * k, params.freq_max)
     n_words = max_block_words(max_count, params.symbol_count, params, k)
-    words, byte_lens, ovf = encode_blocks_pallas_m(
-        jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic), params, n_words, delta
+    words, byte_lens, ovf = KERNEL.encode(
+        jnp.asarray(syms.astype(np.uint8)), jnp.asarray(lens), jnp.asarray(ic),
+        params, n_words, delta,
     )
-    words = np.asarray(words)
-    byte_lens = np.asarray(byte_lens)
-    assert not np.asarray(ovf).any()
-    for i, d in enumerate(blocks):
-        exp = oracle.compress_block(d, params, ic.astype(np.int64), delta)
-        got = words[i].astype(">u4").tobytes()[: byte_lens[i]]
-        assert got == exp, f"block {i}: len {len(got)} vs {len(exp)}"
+    _check(blocks, words, byte_lens, ovf, params, ic, delta)
 
 
-def test_model_in_kernel_wide_mixed():
+def test_ranked_kernel_wide_mixed():
     params = Parameters.tpu_wide()
     rng = np.random.default_rng(4)
     k = 300
@@ -128,75 +129,39 @@ def test_model_in_kernel_wide_mixed():
         b"x",
         bytes(rng.integers(0, 256, 97, dtype=np.uint8)),
     ]
-    _run_m(blocks, params, delta=16, k=k)
+    _run_ranked(blocks, params, delta=16, k=k)
 
 
-def test_model_in_kernel_prior_and_freeze():
+def test_ranked_kernel_prior_and_freeze():
     params = Parameters(8, 14, 16)
     rng = np.random.default_rng(5)
     k = 600
     blocks = [bytes(rng.integers(0, 8, k, dtype=np.uint8)),
               (b"abcabcabd" * 80)[:k]]
-    _run_m(blocks, params, delta=4, k=k, prior=True)
+    _run_ranked(blocks, params, delta=4, k=k, prior=True)
 
 
-def test_fused_model_coder_kernel_matches_oracle():
-    """The round-5 FUSED kernel (inline two-level model sweep + streaming
-    coder in ONE program — the production TPU encode) on the interpreter:
-    bit-identical v2 payloads vs the sequential oracle, including a
-    freeze-overshoot delta, bucket-boundary symbols, pad lanes, and the
-    terminator position reading a padded symbol."""
-    from redux_tpu.ops.pallas_encode import (
-        EPOCH, LANES, SLAB, _encode_fused_model_jit,
-    )
-
-    import jax
-
-    params = Parameters(8, 14, 16)
+def test_kernel_matches_xla_encoder_words_and_overflow_cut():
+    """Same byte lengths and ovf flags as encode_blocks_v2, and the same
+    words up to each stream's end — also when ``n_words`` cuts a stream
+    short (the api then stores that block raw)."""
+    params = Parameters.tpu_wide()
     rng = np.random.default_rng(6)
-    k = 220
-    delta = 120  # overshoots freq_max = 16383 mid-block at k=220
-    blocks = [
-        bytes(rng.integers(0, 256, k, dtype=np.uint8)),
-        bytes([7] * k),  # every hi read crosses a bucket boundary
-        bytes([255] * k),  # top bucket
-        (b"fused model+coder " * 20)[:k],
-        b"z",
-    ]
-    b = len(blocks)
-    syms = np.zeros((b, k), np.int32)
-    lens = np.zeros(b, np.int32)
-    for i, d in enumerate(blocks):
-        syms[i, : len(d)] = np.frombuffer(d, np.uint8)
-        lens[i] = len(d)
-    ic = uniform_init_cum(params).astype(np.int32)
-    b_pad = ((b + LANES - 1) // LANES) * LANES
-    k_pad = ((k + 1 + EPOCH - 1) // EPOCH) * EPOCH
-    n_words = ((k // 2 + SLAB - 1) // SLAB) * SLAB
-    with jax.enable_x64(False):
-        syms_t = jnp.pad(
-            jnp.asarray(syms), ((0, b_pad - b), (0, k_pad - k))
-        ).T
-        lens_p = jnp.pad(
-            jnp.asarray(lens), (0, b_pad - b), constant_values=-1
-        ).reshape(1, b_pad)
-        from redux_tpu.ops.pallas_encode import _build_init_col
-
-        icol = _build_init_col(ic, params)
-        it0 = jnp.asarray(ic, jnp.int32)[-1]
-        tf = jnp.maximum(
-            (jnp.int32(params.freq_max) - it0 + (delta - 1))
-            // jnp.int32(delta),
-            0,
-        )
-        consts = jnp.stack([it0, tf]).reshape(1, 2)
-        words_t, blen, ovf = _encode_fused_model_jit(
-            syms_t, lens_p, icol, consts, params, n_words, delta
-        )
-    words = np.asarray(words_t).T[:b]
-    byte_lens = np.asarray(blen)[0, :b]
-    assert not np.asarray(ovf)[0, :b].any()
-    for i, d in enumerate(blocks):
-        exp = oracle.compress_block(d, params, ic.astype(np.int64), delta)
-        got = words[i].astype(">u4").tobytes()[: byte_lens[i]]
-        assert got == exp, f"block {i}: len {len(got)} vs {len(exp)}"
+    k = 256
+    blocks = [bytes(rng.integers(0, 256, k, dtype=np.uint8)),
+              (b"mostly text, mostly " * 20)[:k], b"\x00" * k]
+    syms, lens = _blocks_matrix(blocks, k)
+    ic = jnp.asarray(uniform_init_cum(params).astype(np.int32))
+    lo, hi, tot, _, _, _ = precompute_encode_model(
+        jnp.asarray(syms), jnp.asarray(lens), ic, params.freq_max, delta=16
+    )
+    n_words = k // 8  # too small for the random block's stream
+    wk, bk, ok = encode_blocks(lo, hi, jnp.asarray(lens), ic[-1], params,
+                               n_words, 16, interpret=True)
+    wx, bx, ox = encode_blocks_v2(lo, hi, tot, jnp.asarray(lens), params, n_words)
+    np.testing.assert_array_equal(np.asarray(bk), np.asarray(bx))
+    np.testing.assert_array_equal(np.asarray(ok), np.asarray(ox))
+    assert int(np.asarray(bk)[0]) > 4 * n_words  # the cut stream says so
+    for i in range(len(blocks)):
+        n = min(-(-int(np.asarray(bx)[i]) // 4), n_words)
+        np.testing.assert_array_equal(np.asarray(wk)[i, :n], np.asarray(wx)[i, :n])
