@@ -8,19 +8,20 @@ an error:
 
 1. Device: JAX's backend must be a GPU.  Prints ``device_kind``, the
    device count and ``nvidia-smi``'s name and power limit.
-2. Kernels vs references at real widths: ~2,400 blocks of 4 KiB of
-   ``corpus.mixed``.  The Pallas encode and decode kernels must equal the
-   XLA scans on every block and the native C++ twin on sampled blocks of
-   every data class (incompressible and constant ones included).
-3. Main path: ``api.encode`` -> ``api.decode`` of 256 MiB (two encode and
-   two decode lane chunks), byte-exact with the crc verified; prints the
-   ratio, the archive's sha256 and peak device memory.  Then 16 MiB
+2. Kernels vs references at real widths: ~2,600 blocks of 4 KiB, 10 MB
+   of ``corpus.mixed`` and 16 blocks of every data class of
+   ``corpus.CLASSES`` (incompressible and constant ones included).  The
+   Pallas encode and decode kernels must equal the XLA scans on every
+   block and the native C++ twin on sampled blocks of every class.
+3. Main path: ``api.encode`` -> ``api.decode`` of two encode chunks of
+   ``corpus.mixed`` (256 MiB), byte-exact with the crc verified; prints
+   the ratio, the archive's sha256 and peak device memory.  Then 16 MiB
    through ``cli.main`` (``-c`` and ``-d``, in-process: a second JAX
    process would not find the card's memory free), and 4 MiB with the
    CLI's default parameters.
 4. Timing: each kernel against the XLA scan it replaces and the rank
-   stage, device-resident, after warm-up; ms per stage, and the rank
-   stage's compiled memory analysis.
+   stage, device-resident, after warm-up; ms per stage, and the compiled
+   memory analysis of the rank stage and the decode kernel at one chunk.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": ..., "kind": ..., "count": ...}}``.
@@ -44,7 +45,6 @@ import time
 
 K = 4096  # the shipped block size
 DELTA = 16  # the shipped adaptation increment
-MAIN_BYTES = 256 << 20
 CLI_BYTES = 16 << 20
 KERNEL_BYTES = 10_000_000
 
@@ -85,22 +85,37 @@ def _prior(data, params):
     return prior, api._init_cum(params, prior)
 
 
-def sample_blocks(n_bytes: int, seed: int, k: int, per_class: int = 3):
-    """Indices of ``k``-byte blocks lying wholly inside a segment,
-    ``per_class`` of each data class of ``corpus.mixed(n_bytes, seed)``."""
-    from redux_tpu import corpus
-
+def sample_blocks(segments, k: int, required, per_class: int = 3):
+    """Indices of ``k``-byte blocks lying wholly inside a segment
+    (``corpus.mixed_segments``' tuples), ``per_class`` of each data class;
+    every class in ``required`` must have some."""
     picked = {}
-    for cls, start, size, _ in corpus.mixed_segments(n_bytes, seed):
+    for _, cls, start, size, _ in segments:
         first = -(-start // k)
         last = (start + size) // k  # exclusive
         for b in range(first, min(last, first + per_class)):
             if len(picked.setdefault(cls, [])) < per_class:
                 picked[cls].append(b)
-    missing = set(corpus.CLASSES) - set(picked)
+    missing = set(required) - {c for c, idx in picked.items() if idx}
     if missing:
         raise AssertionError(f"no sampled blocks of {missing}")
     return picked
+
+
+def kernel_input(n_bytes: int, seed: int, per_class: int = 16):
+    """Whole blocks of ``corpus.mixed(n_bytes, seed)``, then ``per_class``
+    blocks of every class of ``corpus.CLASSES``: the incompressible class,
+    which no reference file holds, and the artificial files, which a 10 MB
+    prefix of the mix may lack, get blocks too.  Returns (data, segments)."""
+    from redux_tpu import corpus
+
+    n = n_bytes // K * K
+    segs = list(corpus.mixed_segments(n, seed))
+    parts = [corpus.mixed(n, seed)]
+    for i, (cls, make) in enumerate(corpus.CLASSES.items()):
+        segs.append((cls, cls, n + i * per_class * K, per_class * K, seed + i))
+        parts.append(make(per_class * K, seed + i))
+    return b"".join(parts), segs
 
 
 def check_native(data: bytes, picked, params, prior, streams, decoded):
@@ -136,9 +151,8 @@ def check_kernels(n_bytes: int = KERNEL_BYTES, seed: int = 1):
     from redux_tpu.params import Parameters
 
     params = Parameters.tpu_wide()
-    data = corpus.mixed(n_bytes, seed)
+    data, segs = kernel_input(n_bytes, seed)
     b = len(data) // K
-    data = data[: b * K]
     prior, ic = _prior(data, params)
     syms = jnp.asarray(np.frombuffer(data, np.uint8).reshape(b, K))
     lens = jnp.full((b,), K, jnp.int32)
@@ -168,7 +182,7 @@ def check_kernels(n_bytes: int = KERNEL_BYTES, seed: int = 1):
     src = np.frombuffer(data, np.uint8).reshape(b, K)
     assert (dk[coded] == src[coded]).all(), "decode differs from the input"
 
-    picked = sample_blocks(len(data), seed, K)
+    picked = sample_blocks(segs, K, corpus.CLASSES)
     n = check_native(
         data, picked, params, prior,
         lambda i: (kb[i, : nbytes[i]].tobytes(), int(bk[i])),
@@ -213,14 +227,14 @@ def _dp_sharding_check():
     log(f"sharding: {kc.name} coder outputs partitioned over {nd} devices")
 
 
-def main_path(n_bytes: int = MAIN_BYTES, cli_bytes: int = CLI_BYTES,
-              seed: int = 1, expect_sha256=None, with_cli: bool = True):
-    """Phase 3: api round trip of ``n_bytes`` and a CLI round trip."""
-    import jax
+def main_path(cli_bytes: int = CLI_BYTES, seed: int = 1, expect_sha256=None,
+              with_cli: bool = True):
+    """Phase 3: api round trip of two encode chunks and a CLI round trip."""
     import numpy as np
 
     from redux_tpu import api, cli, container, corpus
 
+    n_bytes = 2 * api._ENC_CHUNK_BYTES
     data = corpus.mixed(n_bytes, seed)
     te, td = {}, {}
     t0 = time.perf_counter()
@@ -231,9 +245,9 @@ def main_path(n_bytes: int = MAIN_BYTES, cli_bytes: int = CLI_BYTES,
     assert out == data, "api round trip differs"
     header, _ = container.parse_archive(arc, with_streams=False)
     k = header.block_size
-    chunks_e = -(-header.n_blocks // (api._enc_chunk_bytes() // k))
-    chunks_d = -(-header.n_blocks // (api._dec_chunk_bytes() // k))
-    assert chunks_e >= 2 and chunks_d >= 2, (chunks_e, chunks_d)
+    chunks_e = -(-header.n_blocks // (api._ENC_CHUNK_BYTES // k))
+    chunks_d = -(-header.n_blocks // (api._DEC_CHUNK_BYTES // k))
+    assert chunks_e >= 2, chunks_e
     sha = hashlib.sha256(arc).hexdigest()
     peak = peak_bytes_in_use()
     n_raw = int(np.sum(header.block_raw)) if header.block_raw else 0
@@ -252,7 +266,8 @@ def main_path(n_bytes: int = MAIN_BYTES, cli_bytes: int = CLI_BYTES,
     _, streams = container.parse_archive(arc)
     prior = header.prior_extra
     raw = header.block_raw or [False] * header.n_blocks
-    picked = sample_blocks(len(data), seed, k)
+    segs = corpus.mixed_segments(n_bytes, seed)
+    picked = sample_blocks(segs, k, {cls for _, cls, _, size, _ in segs if size >= 2 * k})
     n = 0
     from redux_tpu import native
 
@@ -304,19 +319,19 @@ def _timed(f, n=5):
 
 
 def time_stages(seed: int = 1):
-    """Phase 4: kernel vs XLA per stage, device-resident, ms (min of 5)."""
-    import jax
+    """Phase 4: kernel vs XLA per stage, device-resident, ms (min of 5;
+    the XLA scans min of 3)."""
     import jax.numpy as jnp
     import numpy as np
 
     from redux_tpu import api, corpus
-    from redux_tpu.ops import coder, triton_coder
-    from redux_tpu.ops.ranks import precompute_encode_model
+    from redux_tpu.ops import backend, triton_coder
     from redux_tpu.params import Parameters
 
     params = Parameters.tpu_wide()
+    kc, xc = backend.TRITON, backend.XLA
     n_words = K // 4 + 16
-    chunk = api._enc_chunk_bytes()
+    chunk = api._ENC_CHUNK_BYTES
     for n_bytes in (KERNEL_BYTES, chunk):
         data = corpus.mixed(n_bytes, seed)
         b = len(data) // K
@@ -325,27 +340,43 @@ def time_stages(seed: int = 1):
         icj = jnp.asarray(ic)
         syms = jnp.asarray(np.frombuffer(data, np.uint8).reshape(b, K))
         lens = jnp.full((b,), K, jnp.int32)
-        ranks = jax.jit(lambda s, l, i: precompute_encode_model(
-            s, l, i, params.freq_max, delta=DELTA))
-        lo, hi, tot, _, _, _ = ranks(syms, lens, icj)
-        t_rank = _timed(lambda: ranks(syms, lens, icj))
-        t_ek = _timed(lambda: triton_coder.encode_blocks(
-            lo, hi, lens, icj[-1], params, n_words, DELTA))
-        t_ex = _timed(lambda: coder.encode_blocks_v2(lo, hi, tot, lens, params, n_words), n=3)
-        w, bl, ov = triton_coder.encode_blocks(lo, hi, lens, icj[-1], params, n_words, DELTA)
+
+        def ranks(c):
+            return backend.ranks(syms, lens, icj, params, DELTA, c.with_tot)
+
+        pk, px = ranks(kc), ranks(xc)
+        t_rk = _timed(lambda: ranks(kc))
+        t_rx = _timed(lambda: ranks(xc))
+        t_ek = _timed(lambda: kc.code(pk, lens, icj, params, n_words, DELTA))
+        t_ex = _timed(lambda: xc.code(px, lens, icj, params, n_words, DELTA), n=3)
+        w, bl, ov = kc.code(pk, lens, icj, params, n_words, DELTA)
         w = jnp.pad(w, ((0, 0), (0, 2)))
         dl = jnp.where((bl <= 4 * n_words) & ~ov, K, 0).astype(jnp.int32)
-        t_dk = _timed(lambda: triton_coder.decode_blocks(w, dl, icj, params, K, DELTA))
-        t_dx = _timed(lambda: coder.decode_blocks(w, dl, icj, params, K, delta=DELTA), n=3)
+        t_dk = _timed(lambda: kc.decode(w, dl, icj, params, K, DELTA))
+        t_dx = _timed(lambda: xc.decode(w, dl, icj, params, K, DELTA), n=3)
         mb = b * K / 1e6
-        log(f"timing {b} blocks ({mb:.1f} MB): rank {t_rank * 1e3:.3f} ms; "
+        log(f"timing {b} blocks ({mb:.1f} MB): rank {t_rk * 1e3:.3f} ms "
+            f"(with totals, for the XLA coder: {t_rx * 1e3:.3f} ms); "
             f"encode kernel {t_ek * 1e3:.3f} ms vs XLA {t_ex * 1e3:.3f} ms; "
             f"decode kernel {t_dk * 1e3:.3f} ms vs XLA {t_dx * 1e3:.3f} ms")
-        if n_bytes == chunk:
-            mem = ranks.lower(syms, lens, icj).compile().memory_analysis()
-            log(f"rank stage memory at one {chunk >> 20} MiB chunk: "
-                f"temp {mem.temp_size_in_bytes} B, output {mem.output_size_in_bytes} B, "
-                f"argument {mem.argument_size_in_bytes} B")
+        if n_bytes != chunk:
+            continue
+        n_in = b * K
+        for c in (kc, xc):
+            m = backend.ranks.lower(syms, lens, icj, params, DELTA,
+                                    c.with_tot).compile().memory_analysis()
+            tot = m.argument_size_in_bytes + m.temp_size_in_bytes + m.output_size_in_bytes
+            log(f"rank stage for the {c.name} coder at one {chunk >> 20} MiB chunk: "
+                f"argument {m.argument_size_in_bytes} B, temp {m.temp_size_in_bytes} B, "
+                f"output {m.output_size_in_bytes} B; {tot / n_in:.2f} B per input byte")
+        m = triton_coder.decode_blocks.lower(
+            w, dl, icj, params, K, DELTA).compile().memory_analysis()
+        staged = w.size * w.dtype.itemsize  # the u8 staging matrix
+        tot = staged + m.argument_size_in_bytes + m.temp_size_in_bytes + m.output_size_in_bytes
+        log(f"decode kernel at one {n_in >> 20} MiB chunk: argument "
+            f"{m.argument_size_in_bytes} B, temp {m.temp_size_in_bytes} B, output "
+            f"{m.output_size_in_bytes} B, staged stream bytes {staged} B; "
+            f"{tot / n_in:.2f} B per decoded byte")
 
 
 def main(argv=None) -> int:

@@ -24,7 +24,6 @@ Reference-format single streams (no container) are handled by
 from __future__ import annotations
 
 import math
-import os
 from typing import Optional
 
 import jax
@@ -159,26 +158,31 @@ def _gather_slices(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
     return out
 
 
-def _dec_chunk_bytes() -> int:
-    """Decoded bytes per decode dispatch (large-input lane chunking).
+# Large inputs go through the coder in lane chunks, one after another with
+# a sync between (queued chunks would pin all their planes at once).  A
+# chunk's device working set is held to _CHUNK_DEVICE_BYTES: a tenth of an
+# H100's 80 GB, which leaves most of JAX's pool (three quarters of the card
+# unless XLA_PYTHON_CLIENT_MEM_FRACTION says otherwise) to the previous
+# chunk's results and to other work on the card.  Larger chunks would not
+# shorten a call: the device stages of a 128 MiB encode chunk take under a
+# tenth of a second, against seconds of host work (PERF.md).
+_CHUNK_DEVICE_BYTES = 8 << 30
+# Device bytes per input byte at a 128 MiB chunk, measured on an H100
+# (PERF.md).  Encode: the rank stage's symbols, temporaries and model
+# planes, 57.00 B per byte for the kernel and 61.00 with the running totals
+# the XLA scan reads.  Decode: the staged stream bytes, their words and the
+# decoded symbols, 3.04 B per byte when every block is coded (rounded up).
+_ENC_DEVICE_BYTES_PER_BYTE = 61
+_DEC_DEVICE_BYTES_PER_BYTE = 4
 
-    The staging words and the symbol plane cost ~2 device bytes per
-    decoded byte; 128 MiB chunks keep that near 0.3 GB while giving the
-    decode kernel 32,768 one-warp programs to fill the card.
-    ``REDUX_DEC_CHUNK_MB`` overrides it.
-    """
-    return int(os.environ.get("REDUX_DEC_CHUNK_MB", "128")) << 20
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
 
 
-def _enc_chunk_bytes() -> int:
-    """Input bytes per encode dispatch (large-input lane chunking).
-
-    The rank stage's temporaries are ~50 device bytes per input byte
-    (6.4 GB at a 128 MiB chunk on an H100, PERF.md), a bounded share of
-    the card's 80 GB.  Chunks run one after another with a sync between
-    (queued chunks would pin all their planes at once).
-    ``REDUX_ENC_CHUNK_MB`` overrides it."""
-    return int(os.environ.get("REDUX_ENC_CHUNK_MB", "128")) << 20
+# Input bytes per encode dispatch and decoded bytes per decode dispatch.
+_ENC_CHUNK_BYTES = _pow2_floor(_CHUNK_DEVICE_BYTES // _ENC_DEVICE_BYTES_PER_BYTE)
+_DEC_CHUNK_BYTES = _pow2_floor(_CHUNK_DEVICE_BYTES // _DEC_DEVICE_BYTES_PER_BYTE)
 
 
 def _check_config(params: Parameters, block_size: int, delta: int, init_total: int):
@@ -280,10 +284,8 @@ def encode(
         byts = np.asarray(words_to_bytes_device(words[:m, :wcap]))
         return byts, bl_np, ov_np
 
-    # Large inputs go through the coder in lane chunks so the rank stage's
-    # tables and planes stay bounded (see _enc_chunk_bytes); chunks run
-    # sequentially (sync per chunk via the host fetch).
-    chunk_lanes = max(q, (_enc_chunk_bytes() // max(k, 1)) // q * q)
+    # Lane chunks (see _CHUNK_DEVICE_BYTES); the host fetch syncs each.
+    chunk_lanes = max(q, (_ENC_CHUNK_BYTES // max(k, 1)) // q * q)
     cat_parts, bl_parts, raw_parts = [], [], []
     for s0 in range(0, n_blocks, chunk_lanes):
         s1 = min(s0 + chunk_lanes, n_blocks)
@@ -434,7 +436,7 @@ def decode(archive: bytes, _timings: Optional[dict] = None) -> bytes:
     # by coded length, so early chunks get smaller word capacities; the
     # capacity is re-derived per chunk and snapped by _pad_lanes to keep
     # the distinct compile shapes few.
-    chunk_lanes = max(q, (_dec_chunk_bytes() // max(k, 1)) // q * q)
+    chunk_lanes = max(q, (_DEC_CHUNK_BYTES // max(k, 1)) // q * q)
     syms_u8 = np.empty((n_blocks, k), dtype=np.uint8)
     for s0 in range(0, n_blocks, chunk_lanes):
         s1 = min(s0 + chunk_lanes, n_blocks)

@@ -14,16 +14,19 @@ class per kind of data the corpora hold:
 * ``records`` -- binary tables (``geo``, ``obj*``, ``kennedy.xls``):
   fixed-width little-endian records with counters, slowly drifting
   float32 columns, small codes and zero padding.
-* ``random`` -- incompressible bytes; such blocks take the container's
-  stored-raw path.
 * ``tiny`` -- a four-letter alphabet with skewed frequencies (``E.coli``,
-  ``ptt5``).
+  ``pic``, ``ptt5``).
 * ``constant`` -- one byte repeated (``aaa.txt``).
+* ``random64`` -- uniform over 64 printable symbols (``random.txt``).
+* ``digits`` -- uniform decimal digits (``pi.txt``).
+* ``random`` -- incompressible bytes, which no reference file holds; such
+  blocks take the container's stored-raw path.
 
 ``a.txt`` and ``alphabet.txt`` are generated exactly (``b"a"`` and
-``abc...z`` repeated to 100,000 bytes).  :func:`mixed` concatenates
-segments of every class; :func:`reference_file` gives a file of the same
-name, class and size as one of the reference corpora's.
+``abc...z`` repeated to 100,000 bytes).  :func:`reference_file` gives a
+file of the same name, class and size as one of the reference corpora's,
+and :func:`mixed` concatenates such files, so its classes have the byte
+shares they have in the corpora.
 """
 
 from __future__ import annotations
@@ -35,19 +38,6 @@ import numpy as np
 
 A_TXT = b"a"
 _ALPHABET_LEN = 100_000
-
-# Segment sizes and class weights of :func:`mixed`.  Segments are tens of
-# blocks long, so most 4 KiB blocks hold one class.
-_MIX = (
-    ("text", 0.40),
-    ("source", 0.20),
-    ("records", 0.18),
-    ("random", 0.10),
-    ("tiny", 0.06),
-    ("constant", 0.06),
-)
-_SEG_MIN = 32 << 10
-_SEG_MAX = 1 << 20
 
 
 def alphabet(n: int = _ALPHABET_LEN) -> bytes:
@@ -149,6 +139,21 @@ def random_bytes(n: int, seed: int = 0) -> bytes:
     return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8).tobytes()
 
 
+def random64(n: int, seed: int = 0) -> bytes:
+    """Uniform over 64 printable symbols."""
+    sym = np.frombuffer(
+        b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789! ",
+        np.uint8,
+    )
+    return np.random.default_rng(seed).choice(sym, n).tobytes()
+
+
+def digits(n: int, seed: int = 0) -> bytes:
+    """Uniform decimal digits."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 10, n, dtype=np.uint8) + ord("0")).tobytes()
+
+
 def tiny(n: int, seed: int = 0) -> bytes:
     """A skewed four-letter alphabet."""
     rng = np.random.default_rng(seed)
@@ -165,35 +170,12 @@ CLASSES = {
     "text": text,
     "source": source,
     "records": records,
-    "random": random_bytes,
     "tiny": tiny,
     "constant": constant,
+    "random64": random64,
+    "digits": digits,
+    "random": random_bytes,
 }
-
-
-def mixed_segments(n_bytes: int, seed: int = 0):
-    """The layout of :func:`mixed`: ``(class, start, size, seed)`` per
-    segment.  Classes follow ``_MIX``'s weights, lengths are uniform in
-    [32 KiB, 1 MiB), and every segment has its own seed drawn from
-    ``seed``."""
-    rng = np.random.default_rng(seed)
-    names = [c for c, _ in _MIX]
-    p = np.array([w for _, w in _MIX])
-    segs, pos = [], 0
-    while pos < n_bytes:
-        cls = names[int(rng.choice(len(names), p=p))]
-        size = min(int(rng.integers(_SEG_MIN, _SEG_MAX)), n_bytes - pos)
-        segs.append((cls, pos, size, int(rng.integers(1 << 62))))
-        pos += size
-    return segs
-
-
-def mixed(n_bytes: int, seed: int = 0) -> bytes:
-    """``n_bytes`` of concatenated segments of every class."""
-    out = np.empty(n_bytes, np.uint8)
-    for cls, start, size, s in mixed_segments(n_bytes, seed):
-        out[start : start + size] = np.frombuffer(CLASSES[cls](size, s), np.uint8)
-    return out.tobytes()
 
 
 # Name, class and size of the reference corpora's files.
@@ -231,20 +213,55 @@ REFERENCE_FILES = {
 }
 
 
-def reference_file(corpus: str, name: str) -> bytes:
+# Bytes of one round of :func:`mixed`: the reference corpora's total.
+ROUND_BYTES = sum(size for names in REFERENCE_FILES.values() for _, size in names.values())
+
+
+def reference_file(corpus: str, name: str, seed: int | None = None) -> bytes:
     """A seeded stand-in for ``corpus/name`` of the reference corpora: the
-    same size, and the class of data the original holds."""
+    same size, and the class of data the original holds.  ``seed``
+    defaults to one derived from the name."""
     cls, size = REFERENCE_FILES[corpus][name]
-    seed = zlib.crc32(f"{corpus}/{name}".encode())
     if cls == "exact":
         return A_TXT if name == "a.txt" else alphabet(size)
-    if cls == "random64":  # artificial/random.txt: 64 printable symbols
-        sym = np.frombuffer(
-            b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789! ",
-            np.uint8,
-        )
-        return np.random.default_rng(seed).choice(sym, size).tobytes()
-    if cls == "digits":
-        rng = np.random.default_rng(seed)
-        return (rng.integers(0, 10, size, dtype=np.uint8) + ord("0")).tobytes()
+    if seed is None:
+        seed = zlib.crc32(f"{corpus}/{name}".encode())
     return CLASSES[cls](size, seed)
+
+
+def mixed_segments(n_bytes: int, seed: int = 0):
+    """The layout of :func:`mixed`: ``(file, class, start, size, seed)``
+    per file stand-in, ``file`` being ``"corpus/name"``.
+
+    The reference corpora's files, each round in its own seeded order and
+    with its own seeds, for as many rounds as ``n_bytes`` takes; the last
+    file is cut at ``n_bytes``.  Each round is the corpora's 18.5 MB
+    (``ROUND_BYTES``), so
+    over whole rounds every class has its byte share there: text 53 %,
+    tiny alphabet 31 %, records 7.8 %, digits 5.4 %, source 1.6 %, and the
+    artificial files (alphabet, constant, random64) 0.5 % each.
+    """
+    files = [(c, n) for c, names in REFERENCE_FILES.items() for n in names]
+    segs, pos, rnd = [], 0, 0
+    while pos < n_bytes:
+        rng = np.random.default_rng([seed, rnd])
+        for i in rng.permutation(len(files)):
+            if pos >= n_bytes:
+                break
+            c, name = files[i]
+            cls, size = REFERENCE_FILES[c][name]
+            size = min(size, n_bytes - pos)
+            segs.append((f"{c}/{name}", cls, pos, size, int(rng.integers(1 << 62))))
+            pos += size
+        rnd += 1
+    return segs
+
+
+def mixed(n_bytes: int, seed: int = 0) -> bytes:
+    """``n_bytes`` of reference-file stand-ins, laid out by
+    :func:`mixed_segments`."""
+    out = np.empty(n_bytes, np.uint8)
+    for f, _, start, size, s in mixed_segments(n_bytes, seed):
+        data = reference_file(*f.split("/"), seed=s)[:size]
+        out[start : start + size] = np.frombuffer(data, np.uint8)
+    return out.tobytes()

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import ClassVar, Optional
 
 import jax
 import jax.numpy as jnp
@@ -27,13 +27,13 @@ from .ranks import precompute_encode_model
 
 @dataclasses.dataclass(frozen=True)
 class Coder:
-    """A block coder: ``name`` says which, ``lane_quantum`` is the lane
-    count its programs are built from (1 for the XLA scans), and
-    ``interpret`` runs Pallas kernels in the interpreter (CPU tests)."""
+    """A block coder.  ``lane_quantum`` is the lane count its programs are
+    built from; ``with_tot`` says whether its encoder reads the rank
+    stage's running totals (the kernel computes them itself)."""
 
-    name: str
-    lane_quantum: int
-    interpret: bool = False
+    name: ClassVar[str]
+    lane_quantum: ClassVar[int]
+    with_tot: ClassVar[bool]
 
     def encode(self, syms, lens, init_cum, params: Parameters, n_words: int,
                delta: int):
@@ -44,28 +44,55 @@ class Coder:
         its compare masks (41.5 GB instead of 6.4 GB of temporaries at a
         128 MiB chunk on an H100, PERF.md).
         """
-        planes = ranks(syms, lens, init_cum, params, delta, self.name == "xla")
+        planes = ranks(syms, lens, init_cum, params, delta, self.with_tot)
         return self.code(planes, lens, init_cum, params, n_words, delta)
 
     def code(self, planes, lens, init_cum, params: Parameters, n_words: int,
              delta: int):
         """Rank-stage ``planes`` (lo, hi, tot) -> the coded words (see
-        :meth:`encode`); ``tot`` is None for the kernel, which computes the
-        running totals itself."""
+        :meth:`encode`)."""
+        raise NotImplementedError
+
+    def decode(self, words, lens, init_cum, params: Parameters, k: int,
+               delta: int):
+        """``(B, W)`` u32 streams -> ``(B, k)`` uint8 symbols."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class XlaCoder(Coder):
+    """The XLA scans of :mod:`redux_tpu.ops.coder`."""
+
+    name = "xla"
+    lane_quantum = 1
+    with_tot = True
+
+    def code(self, planes, lens, init_cum, params, n_words, delta):
         lo, hi, tot = planes
-        if self.name == "xla":
-            return coder.encode_blocks_v2(lo, hi, tot, lens, params, n_words)
+        return coder.encode_blocks_v2(lo, hi, tot, lens, params, n_words)
+
+    def decode(self, words, lens, init_cum, params, k, delta):
+        return coder.decode_blocks(words, lens, init_cum, params, k, delta=delta)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCoder(Coder):
+    """The Pallas kernels of :mod:`redux_tpu.ops.triton_coder`;
+    ``interpret`` runs them in the Pallas interpreter (CPU tests)."""
+
+    interpret: bool = False
+    name = "triton"
+    lane_quantum = triton_coder.TB
+    with_tot = False
+
+    def code(self, planes, lens, init_cum, params, n_words, delta):
+        lo, hi, _ = planes
         return triton_coder.encode_blocks(
             lo, hi, lens, jnp.asarray(init_cum, jnp.int32)[-1], params,
             n_words, delta, interpret=self.interpret,
         )
 
-    def decode(self, words, lens, init_cum, params: Parameters, k: int,
-               delta: int):
-        """``(B, W)`` u32 streams -> ``(B, k)`` uint8 symbols."""
-        if self.name == "xla":
-            return coder.decode_blocks(words, lens, init_cum, params, k,
-                                       delta=delta)
+    def decode(self, words, lens, init_cum, params, k, delta):
         return triton_coder.decode_blocks(
             words, lens, init_cum, params, k, delta, interpret=self.interpret
         )
@@ -81,8 +108,8 @@ def ranks(syms, lens, init_cum, params: Parameters, delta: int, with_tot: bool):
     return lo, hi, tot
 
 
-XLA = Coder("xla", 1)
-TRITON = Coder("triton", triton_coder.TB)
+XLA = XlaCoder()
+TRITON = KernelCoder()
 
 
 def select(params: Parameters, backend: Optional[str] = None) -> Coder:

@@ -10,14 +10,14 @@ deliberate mapping documented in SURVEY.md §2).
 
 from .mesh import (
     data_parallel_mesh,
-    encode_blocks_sharded,
+    encode_symbols_sharded,
     decode_blocks_sharded,
     pad_to_devices,
 )
 
 __all__ = [
     "data_parallel_mesh",
-    "encode_blocks_sharded",
+    "encode_symbols_sharded",
     "decode_blocks_sharded",
     "pad_to_devices",
 ]

@@ -28,7 +28,6 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..params import Parameters
-from ..ops import coder
 
 
 def data_parallel_mesh(devices: Optional[Sequence] = None, n: Optional[int] = None) -> Mesh:
@@ -57,30 +56,6 @@ def pad_to_devices(b: int, mesh: Mesh) -> int:
 
 
 @functools.partial(
-    jax.jit, static_argnames=("params", "n_words", "mesh"), donate_argnums=()
-)
-def _encode_sharded(lo, hi, tot, lens, params: Parameters, n_words: int, mesh: Mesh):
-    fn = functools.partial(coder.encode_blocks_v2.__wrapped__, params=params, n_words=n_words)
-    spec = P("dp")
-    return jax.shard_map(
-        fn,
-        mesh=mesh,
-        in_specs=(spec, spec, spec, spec),
-        out_specs=(spec, spec, spec),
-        check_vma=False,
-    )(lo, hi, tot, lens)
-
-
-def encode_blocks_sharded(lo, hi, tot, lens, params: Parameters, n_words: int, mesh: Mesh):
-    """Sharded :func:`redux_tpu.ops.coder.encode_blocks_v2` (lanes over ``dp``).
-
-    The lane count must be a multiple of the mesh size
-    (use :func:`pad_to_devices`).  Returns ``(words, byte_lens, ovf)``.
-    """
-    return _encode_sharded(lo, hi, tot, lens, params, n_words, mesh)
-
-
-@functools.partial(
     jax.jit, static_argnames=("params", "k", "delta", "mesh", "impl")
 )
 def _decode_sharded(words, lens, init_cum, params: Parameters, k: int,
@@ -97,14 +72,14 @@ def _decode_sharded(words, lens, init_cum, params: Parameters, k: int,
 def decode_blocks_sharded(words, lens, init_cum, params: Parameters, k: int,
                           mesh: Mesh, delta: int = 1, impl=None):
     """Sharded decode by ``impl``, a :class:`redux_tpu.ops.backend.Coder`
-    (default: the XLA scan, :func:`redux_tpu.ops.coder.decode_blocks`).
+    (default: the backend's, :func:`redux_tpu.ops.backend.select`).
     Returns ``(B, k)`` uint8 symbols, lanes partitioned over ``dp``; the
-    lane count must be a multiple of ``impl.lane_quantum`` times the mesh
-    size."""
+    lane count must be a multiple of the mesh size (whole
+    ``impl.lane_quantum`` tiles per shard avoid padded programs)."""
     from ..ops import backend
 
     return _decode_sharded(words, lens, init_cum, params, k, delta, mesh,
-                           impl or backend.XLA)
+                           impl or backend.select(params))
 
 
 def initialize_multihost(**kwargs) -> None:
@@ -154,12 +129,17 @@ def _code_sharded(planes, lens, init_cum, params: Parameters, n_words: int,
 
 
 def encode_symbols_sharded(syms, lens, init_cum, params: Parameters,
-                           n_words: int, mesh: Mesh, delta: int, impl):
-    """Sharded :meth:`redux_tpu.ops.backend.Coder.encode` — the rank stage
-    and the coder each inside the shard (zero collectives), as two programs
-    like the unsharded path.  The lane count must be a multiple of
-    ``impl.lane_quantum`` times the mesh size."""
+                           n_words: int, mesh: Mesh, delta: int = 1, impl=None):
+    """Sharded :meth:`redux_tpu.ops.backend.Coder.encode` by ``impl``
+    (default: the backend's, :func:`redux_tpu.ops.backend.select`): the
+    rank stage and the coder each inside the shard (zero collectives), as
+    two programs like the unsharded path.  Returns ``(words, byte_lens,
+    ovf)``; the lane count must be a multiple of the mesh size (see
+    :func:`pad_to_devices`)."""
+    from ..ops import backend
+
+    impl = impl or backend.select(params)
     planes = _ranks_sharded(syms, lens, init_cum, params, delta,
-                            impl.name == "xla", mesh)
+                            impl.with_tot, mesh)
     return _code_sharded(planes, lens, init_cum, params, n_words, delta,
                          mesh, impl)

@@ -33,7 +33,7 @@ def run_multihost_roundtrip(
     """
     import jax
 
-    from .mesh import data_parallel_mesh, encode_blocks_sharded, initialize_multihost
+    from .mesh import data_parallel_mesh, encode_symbols_sharded, initialize_multihost
 
     initialize_multihost(
         coordinator_address=coordinator,
@@ -46,7 +46,6 @@ def run_multihost_roundtrip(
 
     from ..models.dense import uniform_init_cum
     from ..ops.coder import max_block_words
-    from ..ops.ranks import precompute_encode_model
     from .. import oracle
 
     params = Parameters.tpu_wide()
@@ -56,7 +55,7 @@ def run_multihost_roundtrip(
     # Same global input on every host (deterministic): mixed entropy.
     data = (rng.integers(0, 256, b * k // 2, dtype=np.uint8).tobytes()
             + (b"multihost block parallel coding " * ((b * k) // 64 + 1)))[: b * k]
-    syms_np = np.frombuffer(data, np.uint8).reshape(b, k).astype(np.int32)
+    syms_np = np.frombuffer(data, np.uint8).reshape(b, k)
     lens_np = np.full(b, k, np.int32)
     ic = uniform_init_cum(params).astype(np.int32)
 
@@ -78,11 +77,8 @@ def run_multihost_roundtrip(
     n_words = max_block_words(
         min(257 + delta * k, params.freq_max), params.symbol_count, params, k
     )
-    lo, hi, tot, _, _, _ = precompute_encode_model(
-        syms, lens, jnp.asarray(ic), params.freq_max, delta=delta
-    )
-    words, byte_lens, ovf = encode_blocks_sharded(
-        lo, hi, tot, lens, params, n_words, mesh
+    words, byte_lens, ovf = encode_symbols_sharded(
+        syms, lens, jnp.asarray(ic), params, n_words, mesh, delta
     )
 
     # Ordered all-gather of the compressed shards over DCN: every host
@@ -140,7 +136,7 @@ def run_scaling_worker(
     from .mesh import (
         data_parallel_mesh,
         decode_blocks_sharded,
-        encode_blocks_sharded,
+        encode_symbols_sharded,
         initialize_multihost,
     )
 
@@ -156,7 +152,6 @@ def run_scaling_worker(
     from .. import corpus
     from ..models.dense import uniform_init_cum
     from ..ops.coder import max_block_words
-    from ..ops.ranks import precompute_encode_model
 
     params = Parameters.tpu_wide()
     # Lane-chunked dispatch, mirroring api.encode's production chunking:
@@ -185,7 +180,6 @@ def run_scaling_worker(
             rows.append(
                 np.frombuffer(data[start : start + bpc * k], np.uint8)
                 .reshape(bpc, k)
-                .astype(np.int32)
             )
         chunks_np.append(np.concatenate(rows, axis=0))
     lens_np = np.full(bc, k, np.int32)
@@ -197,10 +191,8 @@ def run_scaling_worker(
     )
 
     def enc(chunk):
-        lo, hi, tot, _, _, _ = precompute_encode_model(
-            chunk, lens, icj, params.freq_max, delta=delta
-        )
-        return encode_blocks_sharded(lo, hi, tot, lens, params, n_words, mesh)
+        return encode_symbols_sharded(chunk, lens, icj, params, n_words, mesh,
+                                      delta)
 
     words_c = [jax.block_until_ready(enc(s)) for s in syms_c[:1]]  # warmup
     multihost_utils.sync_global_devices("enc-start")
@@ -232,8 +224,8 @@ def run_scaling_worker(
         dall = multihost_utils.process_allgather(d, tiled=True)
         ok = ok and bool(
             np.array_equal(
-                np.asarray(dall)[:, :k].astype(np.uint8),
-                chunks_np[c].astype(np.uint8),
+                np.asarray(dall)[:, :k],
+                chunks_np[c],
             )
         )
     data = data[: bph * num_processes * k]

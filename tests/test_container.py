@@ -111,9 +111,7 @@ def test_raw_blocks_mixed_with_coded():
 def _kernel_coder(monkeypatch):
     """Route the api to the GPU coder kernels, in interpret mode."""
     from redux_tpu.ops import backend
-    from redux_tpu.ops.triton_coder import TB
-
-    kc = backend.Coder("triton", TB, interpret=True)
+    kc = backend.KernelCoder(interpret=True)
     monkeypatch.setattr(backend, "select", lambda params: kc)
     return kc
 
@@ -144,7 +142,7 @@ def test_api_pallas_decode_lane_chunking(monkeypatch):
     all-raw slab skip, and the chunk reassembly all run.
     """
     _kernel_coder(monkeypatch)
-    monkeypatch.setenv("REDUX_DEC_CHUNK_MB", "0")  # floor: one quantum
+    monkeypatch.setattr(api, "_DEC_CHUNK_BYTES", 0)  # floor: one quantum
     monkeypatch.setattr(api, "_dp_mesh", lambda: None)
     rng = np.random.default_rng(23)
     data = (
@@ -156,6 +154,30 @@ def test_api_pallas_decode_lane_chunking(monkeypatch):
     header, _ = container.parse_archive(arch)
     assert header.n_blocks > 256 and any(header.block_raw)
     assert api.decode(arch) == data
+
+
+def test_coders_say_what_the_rank_stage_owes_them():
+    """The XLA scan reads the running totals, the kernel computes them; an
+    interpreted kernel is a different jit key from the compiled one."""
+    from redux_tpu.ops import backend
+
+    assert backend.XLA.with_tot and not backend.TRITON.with_tot
+    assert backend.XLA.lane_quantum == 1
+    kc = backend.KernelCoder(interpret=True)
+    assert kc != backend.TRITON and kc.lane_quantum == backend.TRITON.lane_quantum
+    assert backend.XLA != backend.TRITON
+    assert len({backend.XLA, backend.TRITON, kc}) == 3
+
+
+def test_chunk_sizes_follow_the_device_budget():
+    """Each direction's chunk is the largest power of two whose measured
+    device working set fits the budget."""
+    for chunk, per_byte in ((api._ENC_CHUNK_BYTES, api._ENC_DEVICE_BYTES_PER_BYTE),
+                            (api._DEC_CHUNK_BYTES, api._DEC_DEVICE_BYTES_PER_BYTE)):
+        assert chunk & (chunk - 1) == 0
+        assert chunk * per_byte <= api._CHUNK_DEVICE_BYTES < 2 * chunk * per_byte
+    # Whole 4 KiB blocks and whole lane tiles on four cards per chunk.
+    assert api._ENC_CHUNK_BYTES % (4096 * api._BLOCK_QUANTUM) == 0
 
 
 def test_selector_picks_the_coder_per_backend(monkeypatch):
@@ -278,7 +300,7 @@ def test_chunked_encode_matches_single_dispatch(monkeypatch):
         + base[40000:80000]
     )
     single = api.encode(data, block_size=256)
-    monkeypatch.setattr(api, "_enc_chunk_bytes", lambda: 128 * 256)
+    monkeypatch.setattr(api, "_ENC_CHUNK_BYTES", 128 * 256)
     chunked = api.encode(data, block_size=256)
     # The wire bytes are identical (chunking is invisible), and decode.
     assert chunked == single

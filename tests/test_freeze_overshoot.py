@@ -100,8 +100,7 @@ def test_pallas_decode_overshoot(blocks):
 
 
 def test_pallas_encode_overshoot(blocks):
-    from redux_tpu.ops.backend import Coder
-    from redux_tpu.ops.triton_coder import TB
+    from redux_tpu.ops.backend import KernelCoder
 
     data, streams, ic = blocks
     syms = np.zeros((len(data), K), dtype=np.int32)
@@ -109,7 +108,7 @@ def test_pallas_encode_overshoot(blocks):
         syms[i] = np.frombuffer(d, dtype=np.uint8)
     lens = np.full(len(data), K, dtype=np.int32)
     n_words = max_block_words(PARAMS.freq_max + DELTA, PARAMS.symbol_count, PARAMS, K)
-    words, byte_lens, ovf = Coder("triton", TB, interpret=True).encode(
+    words, byte_lens, ovf = KernelCoder(interpret=True).encode(
         jnp.asarray(syms), jnp.asarray(lens), jnp.asarray(ic), PARAMS, n_words, DELTA
     )
     assert not np.asarray(ovf).any()

@@ -169,13 +169,13 @@ def test_vector_b_pallas_kernels_match_derivation():
     """Both GPU coder kernels (interpret mode) reproduce the derivation."""
     import jax.numpy as jnp
 
-    from redux_tpu.ops.backend import Coder
-    from redux_tpu.ops.triton_coder import TB, decode_blocks
+    from redux_tpu.ops.backend import KernelCoder
+    from redux_tpu.ops.triton_coder import decode_blocks
 
     ic = uniform_init_cum(PARAMS_B).astype(np.int32)
     syms = jnp.asarray(np.frombuffer(INPUT_B, np.uint8)[None, :].astype(np.int32))
     lens = jnp.asarray(np.array([len(INPUT_B)], np.int32))
-    words, blens, ovf = Coder("triton", TB, interpret=True).encode(
+    words, blens, ovf = KernelCoder(interpret=True).encode(
         syms, lens, jnp.asarray(ic), PARAMS_B, 8, DELTA_B
     )
     got = np.asarray(words)[0].astype(">u4").tobytes()[: int(np.asarray(blens)[0])]

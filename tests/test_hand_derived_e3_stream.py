@@ -112,13 +112,13 @@ def test_v2_terminator_xla_coder_matches_derivation():
 def test_v2_terminator_pallas_kernels_match_derivation():
     import jax.numpy as jnp
 
-    from redux_tpu.ops.backend import Coder
-    from redux_tpu.ops.triton_coder import TB, decode_blocks
+    from redux_tpu.ops.backend import KernelCoder
+    from redux_tpu.ops.triton_coder import decode_blocks
 
     ic = uniform_init_cum(PARAMS).astype(np.int32)
     syms = jnp.asarray(np.frombuffer(INPUT, np.uint8)[None, :].astype(np.int32))
     lens = jnp.asarray(np.array([1], np.int32))
-    words, blens, ovf = Coder("triton", TB, interpret=True).encode(
+    words, blens, ovf = KernelCoder(interpret=True).encode(
         syms, lens, jnp.asarray(ic), PARAMS, 8, 1
     )
     got = np.asarray(words)[0].astype(">u4").tobytes()[: int(np.asarray(blens)[0])]

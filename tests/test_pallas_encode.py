@@ -15,7 +15,7 @@ from redux_tpu.ops.ranks import precompute_encode_model
 from redux_tpu.ops.triton_coder import TB, encode_blocks
 from redux_tpu.params import Parameters
 
-KERNEL = backend.Coder("triton", TB, interpret=True)
+KERNEL = backend.KernelCoder(interpret=True)
 
 
 def _blocks_matrix(blocks, k):

@@ -3,15 +3,30 @@
 The float64 division is checked against Python's integer division over
 the full operand range of the configs the kernels take, with the quotient
 boundaries (``q*y - 1``, ``q*y``, ``q*y + y - 1``) where a rounded
-quotient could be off by one.
+quotient could be off by one: through XLA, through a Pallas kernel in
+interpret mode, and (``gpu`` marker) through the Triton route compiled for
+the card, which is the division the kernels run.
 """
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
-import jax.numpy as jnp
+from jax.experimental import pallas as pl
 
 from redux_tpu.ops import triton_coder
 from redux_tpu.params import Parameters
+
+# Configs the kernels take and the adaptation increments at their ends.
+CONFIGS = pytest.mark.parametrize(
+    "params,delta",
+    [(Parameters.tpu_wide(), 16), (Parameters.tpu_wide(), 255),
+     (Parameters.tpu32(), 1), (Parameters(8, 22, 24), 16),
+     (Parameters(8, 22, 30), 255)],
+    ids=lambda v: str(v) if isinstance(v, int) else f"{v.symbol_bits}_{v.freq_bits}_{v.code_bits}",
+)
 
 
 def _operands(params: Parameters, delta: int, n: int, seed: int):
@@ -40,19 +55,51 @@ def _operands(params: Parameters, delta: int, n: int, seed: int):
     return np.concatenate(xs), np.concatenate(ys)
 
 
-@pytest.mark.parametrize(
-    "params,delta",
-    [(Parameters.tpu_wide(), 16), (Parameters.tpu_wide(), 255),
-     (Parameters.tpu32(), 1), (Parameters(8, 22, 24), 16),
-     (Parameters(8, 22, 30), 255)],
-    ids=lambda v: str(v) if isinstance(v, int) else f"{v.symbol_bits}_{v.freq_bits}_{v.code_bits}",
-)
-def test_div64_exact_over_the_kernel_operand_range(params, delta):
+def _div_kernel(x_ref, y_ref, o_ref):
+    o_ref[...] = triton_coder._div64(x_ref[...], y_ref[...])
+
+
+def _div64_pallas(x, y, interpret: bool, blk: int = 4096):
+    """:func:`triton_coder._div64` inside a Pallas kernel on the Triton
+    route, ``blk`` operands per program."""
+    n = len(x)
+    m = -(-n // blk) * blk
+    spec = pl.BlockSpec((blk,), lambda i: (i,))
+    out = pl.pallas_call(
+        _div_kernel,
+        out_shape=jax.ShapeDtypeStruct((m,), jnp.int64),
+        grid=(m // blk,),
+        in_specs=[spec, spec],
+        out_specs=spec,
+        backend="triton",
+        interpret=interpret,
+    )(jnp.asarray(np.pad(x, (0, m - n))),
+      jnp.asarray(np.pad(y, (0, m - n), constant_values=1)))
+    return np.asarray(out)[:n]
+
+
+def _check_div64(params, delta, divide):
     assert triton_coder.supports(params)
     x, y = _operands(params, delta, 20000, params.code_bits * 1000 + delta)
     assert (x + y).max() < 2**53
-    got = np.asarray(triton_coder._div64(jnp.asarray(x), jnp.asarray(y)))
-    np.testing.assert_array_equal(got, x // y)
+    np.testing.assert_array_equal(divide(x, y), x // y)
+
+
+@CONFIGS
+def test_div64_exact_over_the_kernel_operand_range(params, delta):
+    _check_div64(params, delta, lambda x, y: np.asarray(
+        triton_coder._div64(jnp.asarray(x), jnp.asarray(y))))
+
+
+@CONFIGS
+def test_div64_exact_in_a_pallas_kernel(params, delta):
+    _check_div64(params, delta, functools.partial(_div64_pallas, interpret=True))
+
+
+@pytest.mark.gpu
+@CONFIGS
+def test_div64_exact_compiled_for_the_gpu(gpu, params, delta):
+    _check_div64(params, delta, functools.partial(_div64_pallas, interpret=False))
 
 
 def test_supports_only_configs_the_kernels_take():
